@@ -1,9 +1,9 @@
-"""tpu-idg-bench: TPU-native Image Domain Gridding benchmark framework.
+"""Image Domain Gridding benchmark framework in JAX, run on an NVIDIA GPU.
 
 Capability-parity re-design of ska-telescope/ska-sdp-idg-bench (CUDA/HIP GPU
-kernel benchmark) for TPU: JAX/XLA + Pallas kernels, golden NumPy oracle,
-dual perf/correctness harness, and (beyond the reference) multi-chip sharding
-via jax.sharding / shard_map.
+kernel benchmark): JAX/XLA + Pallas (Triton route) kernels, golden NumPy
+oracle, dual perf/correctness harness, and (beyond the reference) multi-card
+sharding via jax.sharding / shard_map.
 """
 
 from .config import HarnessConfig, IDGParams

@@ -325,7 +325,7 @@ def make_perf_observation(params: IDGParams, seed: int = 0) -> Observation:
     """Performance-mode inputs.
 
     The reference times kernels on *uninitialized device memory* except for
-    metadata (app/CUDA/util.cpp:204-231). We need defined values on TPU, so we
+    metadata (app/CUDA/util.cpp:204-231). We need defined values, so we
     use cheap deterministic fills with realistic magnitudes; metadata is
     generated with the same draws the reference makes in perf mode
     (initialize_baselines + initialize_metadata only).

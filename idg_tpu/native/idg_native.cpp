@@ -1,9 +1,9 @@
-// Native host-side runtime for the TPU IDG benchmark framework.
+// Native host-side runtime for the IDG benchmark framework.
 //
 // The reference implements its host layer in C++ (data initializers
 // app/common/init.cpp, OpenMP golden kernels app/CPU/kernels/*.cpp,
 // comparator tests/test_util.hpp). This library provides the same
-// capabilities for the TPU framework, exposed over a C ABI and loaded via
+// capabilities for the framework, exposed over a C ABI and loaded via
 // ctypes (idg_tpu/native/__init__.py):
 //
 //   1. glibc-compatible rand() stream (TYPE_3 additive generator) for

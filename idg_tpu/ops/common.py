@@ -1,11 +1,11 @@
 """Shared device-kernel math (jax.numpy, complex-free).
 
-The TPU analogue of the reference's device math header (app/CUDA/math.cuh,
+The analogue of the reference's device math header (app/CUDA/math.cuh,
 app/common/math.hpp): l/m/n grids, per-subgrid uv offsets, time-axis gathers
 driven by metadata, and Jones/taper staging — all on split-complex (re, im)
 f32 pairs (see ops/complexpair.py for why).
 
-Numerical design (TPU-first, differs from the reference on purpose):
+Numerical design (differs from the reference on purpose):
 the phase split  phase = phase_offset − phase_index·k  has a large
 subgrid-constant part: phase_offset = u_off·l + v_off·m + w_off·n can reach
 ~1.6e3 radians, which costs ~1e-4 rad of f32 sincos accuracy. But
@@ -66,25 +66,6 @@ def phase_offset_exact(params: IDGParams, metadata: Metadata):
         w_off = TWO_PI * params.w_step * (metadata.coord_z.astype(jnp.float32) + 0.5)
         po = po + w_off[:, None, None] * n[None, :, :]
     return po
-
-
-def canonical_time_offsets(metadata, nr_timesteps: int) -> bool:
-    """True iff time_offset[s] == s·T — the layout every in-tree generator
-    produces (init.cpp:134-159 semantics). Host-side check (concrete arrays
-    only); lets kernels skip the flat-time gather, which costs ~6 ms per
-    array per 900 subgrids on TPU.
-    """
-    import numpy as np
-
-    try:
-        off = np.asarray(metadata.time_offset)
-    except Exception:
-        return False
-    if off.ndim != 1:
-        return False
-    return bool(
-        np.array_equal(off, np.arange(off.shape[0], dtype=np.int64) * nr_timesteps)
-    )
 
 
 def gather_time(flat, time_offset, nr_timesteps: int):

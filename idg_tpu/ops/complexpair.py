@@ -1,10 +1,10 @@
 """Split-complex arithmetic on (re, im) array pairs.
 
-The TPU execution path is complex-free by design: TPU compute units (MXU/VPU)
-operate on real planes, and this machine's TPU backend rejects complex64
-outright. Device kernels therefore carry complex data as pairs of float32
-arrays and use these helpers; complex64 exists only at the host boundary
-(types.Observation, the NumPy oracle, the comparator).
+The device path is complex-free by design: complex data travels as pairs
+of float32 arrays, so every complex product becomes real dots (tensor-core
+or CUDA-core) and the Pallas kernels see only real tensors. complex64
+exists only at the host boundary (types.Observation, the NumPy oracle, the
+comparator).
 
 A pair is a 2-tuple ``(re, im)`` of same-shape arrays. All helpers are
 jit/Pallas-safe (pure jnp ops).
@@ -37,8 +37,8 @@ def csub(a: Pair, b: Pair) -> Pair:
 
 
 def cmul(a: Pair, b: Pair) -> Pair:
-    """(a·b) — 4 real multiplies (TPU prefers this over Karatsuba's extra
-    adds on the VPU)."""
+    """(a·b) — 4 real multiplies (Karatsuba's 3 would trade one multiply
+    for extra adds and rounding)."""
     return (a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0])
 
 
@@ -64,9 +64,9 @@ def cexp_i(phase) -> Pair:
 def ceinsum(subscripts: str, a: Pair, b: Pair, **kw) -> Pair:
     """Complex einsum over pairs: 4 real einsums.
 
-    Defaults to HIGHEST precision: TPU matmul units multiply f32 inputs in
-    bf16 by default, which fails the 1e-5 correctness gate (measured 1.2e-3
-    normalized RMS); full-f32 passes at ~2e-6.
+    Defaults to HIGHEST precision: a single reduced-precision pass (bf16 or
+    TF32) fails the 1e-5 correctness gate (measured 1.2e-3 normalized RMS
+    for bf16); full f32 passes at ~2e-6.
     """
     kw.setdefault("precision", "highest")
     rr = jnp.einsum(subscripts, a[0], b[0], **kw)
@@ -77,7 +77,7 @@ def ceinsum(subscripts: str, a: Pair, b: Pair, **kw) -> Pair:
 
 
 def cmatmul(a: Pair, b: Pair, **kw) -> Pair:
-    """Complex matmul over pairs: 4 real matmuls (each maps to the MXU).
+    """Complex matmul over pairs: 4 real matmuls.
     HIGHEST precision by default — see ceinsum."""
     kw.setdefault("precision", "highest")
     kw.setdefault("preferred_element_type", jnp.float32)

@@ -1,36 +1,7 @@
-"""Hand-written Pallas TPU kernels (the optimization ladder's upper rungs).
+"""Hand-written Pallas kernels on the Triton route (the card's kernels).
 
-Modules register kernels on import; kernels auto-select interpret mode on
-non-TPU backends so the whole ladder is testable on CPU.
-
-STAGED maps (workload, version) to a (stage_fn, run_fn) pair for the perf
-harness: staging (gathers, layout transposes) runs once outside the timed
-window, and only bare kernel launches are timed — the reference's
-p_run_kernel semantics (app/CUDA/util.cpp:109-126 times cudaLaunchKernel
-loops on pre-staged device buffers the same way).
+Modules register their kernels on import. Each kernel compiles for the GPU;
+tests on the CPU run it with `interpret=True` and `precision=HIGHEST`.
 """
 
-from functools import partial
-
 from . import degridder, gridder  # noqa: F401  (registers kernels)
-from .common import stage
-
-# Each staged kernel reads exactly one per-visibility orientation:
-# v3/v4 the t-major up/vp/mu rows + vis pol-rows, v5+ the c-major
-# recurrence layout — bind it so staging materializes only that half.
-_stage_t = partial(stage, vis_layout="tmajor")
-_stage_c = partial(stage, vis_layout="cmajor")
-
-STAGED = {
-    ("gridder", "pallas_v3"): (_stage_t, gridder.gridder_pallas_v3_staged),
-    ("gridder", "pallas_v4"): (_stage_t, gridder.gridder_pallas_v4_staged),
-    ("gridder", "pallas_v5"): (_stage_c, gridder.gridder_pallas_v5_staged),
-    ("gridder", "pallas_v6"): (_stage_c, gridder.gridder_pallas_v6_staged),
-    ("gridder", "pallas_v7"): (_stage_c, gridder.gridder_pallas_v7_staged),
-    ("degridder", "pallas_v3"): (_stage_t, degridder.degridder_pallas_v3_staged),
-    ("degridder", "pallas_v4"): (_stage_t, degridder.degridder_pallas_v4_staged),
-    ("degridder", "pallas_v5"): (_stage_c, degridder.degridder_pallas_v5_staged),
-    ("degridder", "pallas_v6"): (_stage_c, degridder.degridder_pallas_v6_staged),
-    ("degridder", "pallas_v7"): (_stage_c, degridder.degridder_pallas_v7_staged),
-    ("degridder", "pallas_v8"): (_stage_c, degridder.degridder_pallas_v8_staged),
-}

@@ -1,29 +1,15 @@
-"""Pallas degridder ladder (adjoint direction: subgrids → visibilities).
+"""Degridder as one Pallas kernel on the Triton route (subgrids → visibilities).
 
-Rungs mirror the gridder family (SURVEY.md §2.4 degridder ladder):
+One program per subgrid. The prologue tapers the subgrid, applies the Jones
+terms A1·P·A2ᴴ (ops/common.py: prepare_degridder_pixels) and the n^r
+weights once. Then, for each tile of V = tile_t·C visibilities, it builds
+conj Φx, conj Φy in registers, contracts y on the tensor cores
+(R_p[v, x] = Σ_y conj Φy[v, y]·Q_{r,p}[y, x], a K = N dot) and x on the
+CUDA cores (Σ_x conj Φx[v, x]·R_p[v, x]), and stores the tile.
 
-  pallas_v1  naive: taper+Jones prologue, then full-phase sincos per
-             (t,c,pixel) and an MXU pixel reduction
-             (≈ GPU degridder_v1's timestep-parallel direct form).
-  pallas_v2  channel-recurrence phasor + per-channel dot_general pixel
-             reductions (≈ GPU degridder_v6's cmac refactor with v8-style
-             recurrence).
-  pallas_v3  separable phasor: stage 1 contracts y on the MXU as a packed
-             [V, 2N]×[2N, 2·N·P] matmul per w-rank; stage 2 contracts x on
-             the VPU against Φx* (the x-contraction is per-visibility, so it
-             stays elementwise — the adjoint of the gridder's KR matmul).
-  pallas_v4  v3 + mixed-precision MXU passes per rank (stage 1 packed into
-             one [N,2NP]×[N,2V] dot per rank).
-  pallas_v5  v4 + channel-recurrence phasor generation (O(N·T) sincos,
-             c-major lanes; uniform channel spacing assumed).
-  pallas_v6  pol-stacked x-first adjoint: one full-M [4N,2N]×[2N,2V] MXU
-             dot per rank with a 4× smaller intermediate. The dot contracts
-             K = 2N = 64 — half the MXU's 128-deep contraction — so the
-             bf16 hi/lo splits are K-PACKED ("3x2k", gridder._dot_mixed):
-             2 passes instead of bf16_3x's 3, at full 4-product accuracy,
-             with the Φx RHS split hoisted out of the rank loop.
-  pallas_v7  v6 + multi-subgrid grid steps (fixed-cost amortization).
-  pallas_v8  w-free specialization of v7: rank 1, exact for w ≡ 0 data.
+xla_v4 (ops/xla/separable.py) writes R to device memory for every subgrid
+and rank and reads it back; here only the subgrids are read and only the
+visibilities are written.
 """
 
 from __future__ import annotations
@@ -34,1637 +20,126 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from ...config import IDGParams, get_env_var
+from ...config import IDGParams
 from ...types import SplitObservation
 from ..complexpair import Pair
 from ..registry import register
 from .common import (
-    jones_degridder, kcmul, kcmul_conj, rank_precisions, slice_staged, stage,
-    use_interpret,
+    TF32_X3,
+    axis_phasors,
+    check_shapes,
+    full_spec,
+    jones_herm,
+    jones_mul,
+    lmn,
+    load_jones,
+    load_tile,
+    n_powers,
+    rank_coefficients,
+    subgrid_spec,
+    subgrid_tables,
+    tile_timesteps,
 )
-from .gridder import _at_specs, _dot_mixed
 
-P_POLS = 4
-
-
-def degridder_precisions(w_rank: int):
-    """Degridder pol-stacked (v6+) MXU pass policy: the K-packed 2-pass
-    "3x2k" mode for the rank-0 signal (the [4N,2N]x[2N,2V] dot runs at
-    K = 64 — see gridder._dot_mixed); corrections single-pass bf16 at the
-    default rank, "3x2k" throughout for guard-escalated ranks."""
-    return ("3x2k", "default") if w_rank <= 2 else ("3x2k",) * w_rank
+# Visibilities per loop tile and warps per program: the fastest settings of
+# the sweep on the card (PERF.md).
+TILE_V = 64
+NUM_WARPS = 4
 
 
-def _prologue(pix, sph, a1, a2):
-    """Taper + Jones staging of the input subgrid
-    (degridder_reference.cpp:35-74): per-pol tiles A1·(sph·P)·A2ᴴ."""
-    pix = [(r * sph, i * sph) for (r, i) in pix]
-    return jones_degridder(pix, a1, a2)
+def _kernel(meta_ref, pos_ref, sre_ref, sim_ref, uvw_ref, k_ref, l_ref,
+            m_ref, n_ref, sph_ref, are_ref, aim_ref, ore_ref, oim_ref, *,
+            nr_timesteps: int, tile_t: int, w_rank: int, precision):
+    nr_pols = sre_ref.shape[0]
+    off = meta_ref[0]
+    k, l, m = k_ref[...], l_ref[...], m_ref[...]
+    po_x, po_y, w_off = pos_ref[0, :], pos_ref[1, :], pos_ref[2, 0]
+    c = k.shape[0]
+    t_iota = jnp.arange(tile_t, dtype=jnp.int32)
+    dot = functools.partial(pl.dot, precision=precision)
 
+    sph = sph_ref[...]
+    pix = [(sre_ref[p, :, :] * sph, sim_ref[p, :, :] * sph)
+           for p in range(nr_pols)]
+    slot = meta_ref[1]
+    a1 = load_jones(are_ref, aim_ref, slot, meta_ref[2])
+    a2 = load_jones(are_ref, aim_ref, slot, meta_ref[3])
+    pix = jones_mul(jones_mul(a1, pix), jones_herm(a2))
+    powers = n_powers(n_ref[...], w_rank)
+    q = [[(pw * re, pw * im) for re, im in pix] for pw in powers]
 
-# --------------------------------------------------------------------------
-# pallas_v1 / v2: direct kernels (full phase / channel recurrence)
-# --------------------------------------------------------------------------
+    def body(i, carry):
+        t0 = i * tile_t
+        valid = t0 + t_iota < nr_timesteps
+        rows = pl.ds(off + t0, tile_t)
+        u, v, w = (load_tile(uvw_ref, valid, rows, j) for j in range(3))
+        (cx, sx), (cy, sy), mu = axis_phasors(
+            u, v, w, k, l, m, po_x, po_y, w_off)
+        coefs = rank_coefficients(mu, w_rank)
+        out_rows = pl.ds(t0, tile_t)
+        for p in range(nr_pols):
+            vis_re = vis_im = jnp.zeros_like(mu)
+            for r, (cr, ci) in enumerate(coefs):
+                qr, qi = q[r][p]
+                rr = dot(cy, qr) + dot(sy, qi)          # conj Φy · Q  [V, N(x)]
+                ri = dot(cy, qi) - dot(sy, qr)
+                gr = jnp.sum(cx * rr + sx * ri, axis=1)  # conj Φx · R  [V]
+                gi = jnp.sum(cx * ri - sx * rr, axis=1)
+                vis_re = vis_re + gr * cr + gi * ci      # · conj (iμ)^r/r!
+                vis_im = vis_im + gi * cr - gr * ci
+            ore_ref[out_rows, :, p] = vis_re.reshape(tile_t, c)
+            oim_ref[out_rows, :, p] = vis_im.reshape(tile_t, c)
+        return carry
 
-def _kernel_direct(aidx, st1, st2,
-                   uvw_ref, k_ref, po_ref, lmn_ref,
-                   sub_re_ref, sub_im_ref,
-                   sph_ref, a1re_ref, a1im_ref, a2re_ref, a2im_ref,
-                   out_re_ref, out_im_ref,
-                   *, T, C, N, t_tile, recurrence):
-    """Direct degridder: vis[t,c,p] = Σ_pix conj(phasor)·pixels[pix,p]
-    (degridder_reference.cu:39-115) in flat pixel space; `recurrence=True`
-    swaps per-channel sincos for one complex multiply (v2)."""
-    NN = N * N
-    sph = sph_ref[...]                               # [1, N²]
-    sub = [
-        (sub_re_ref[0, p:p + 1], sub_im_ref[0, p:p + 1]) for p in range(P_POLS)
-    ]
-    a1 = [(a1re_ref[0, 0, p:p + 1], a1im_ref[0, 0, p:p + 1]) for p in range(P_POLS)]
-    a2 = [(a2re_ref[0, 0, p:p + 1], a2im_ref[0, 0, p:p + 1]) for p in range(P_POLS)]
-    pix = _prologue(sub, sph, a1, a2)
-    pix_re = jnp.concatenate([p[0] for p in pix], axis=0)   # [P, N²]
-    pix_im = jnp.concatenate([p[1] for p in pix], axis=0)
-
-    uvw = uvw_ref[0]
-    k = k_ref[0]
-    po = po_ref[0]
-    lmn = lmn_ref[...]
-    dk = k[1] - k[0] if C > 1 else jnp.float32(0.0)
-
-    def dg(a, b):
-        # contract the shared pixel axis: [Tt, N²] × [P, N²] -> [Tt, P]
-        return lax.dot_general(
-            a, b, dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32, precision="highest",
-        )
-
-    for t0 in range(0, T, t_tile):
-        u = uvw[t0:t0 + t_tile, 0:1]
-        v = uvw[t0:t0 + t_tile, 1:2]
-        w = uvw[t0:t0 + t_tile, 2:3]
-        pi = u * lmn[0:1] + v * lmn[1:2] + w * lmn[2:3]      # [Tt, N²]
-        if recurrence:
-            phase0 = pi * k[0] - po
-            ph_re, ph_im = jnp.cos(phase0), jnp.sin(phase0)
-            d_re, d_im = jnp.cos(pi * dk), jnp.sin(pi * dk)
-        for c in range(C):
-            if recurrence:
-                pc_re, pc_im = ph_re, ph_im
-                if c + 1 < C:
-                    ph_re, ph_im = kcmul(ph_re, ph_im, d_re, d_im)
-            else:
-                phase = pi * k[c] - po
-                pc_re, pc_im = jnp.cos(phase), jnp.sin(phase)
-            vr = dg(pc_re, pix_re) - dg(pc_im, pix_im)       # [Tt, P]
-            vi = dg(pc_re, pix_im) + dg(pc_im, pix_re)
-            out_re_ref[0, t0:t0 + t_tile, c, :] = vr
-            out_im_ref[0, t0:t0 + t_tile, c, :] = vi
-
-
-def _degridder_direct(params, sobs, subgrids, recurrence, interpret, t_tile,
-                      canonical=False):
-    stg = stage(params, sobs, canonical)
-    S = stg.uvw.shape[0]
-    T, C, N = params.nr_timesteps_subgrid, params.nr_channels, params.subgrid_size
-    NN = N * N
-    l, m = stg.lrow[0], stg.mrow[0]
-    lmn = jnp.stack([
-        jnp.tile(l[None, :], (N, 1)).reshape(-1),
-        jnp.tile(m[:, None], (1, N)).reshape(-1),
-        stg.n_yx.reshape(-1),
-    ])
-    po_full = (
-        stg.po_x[:, 0, None, :] + stg.po_y[:, 0, :, None]
-    ).reshape(-1, 1, NN)
-    if params.w_step != 0.0:
-        # the axis-separable parts exclude the (non-separable) w_off·n term
-        # (ops/common.phase_offset_parts); add it for the direct kernels
-        from ..common import w_offset_scalar
-
-        w_off = w_offset_scalar(params, sobs.metadata)
-        po_full = po_full + (
-            w_off[:, None, None] * stg.n_yx.reshape(1, 1, NN)
-        )
-    sub_flat = (
-        subgrids[0].reshape(S, P_POLS, NN),
-        subgrids[1].reshape(S, P_POLS, NN),
-    )
-    if interpret is None:
-        interpret = use_interpret()
-    t_tile = min(t_tile, T)
-    while T % t_tile:  # keep every time slice in bounds
-        t_tile -= 1
-    kernel = functools.partial(
-        _kernel_direct, T=T, C=C, N=N, t_tile=t_tile,
-        recurrence=recurrence,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(S,),
-        in_specs=[
-            pl.BlockSpec((1, T, 3), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, C), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, NN), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, NN), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, NN), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, NN), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, NN), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ] + _at_specs(NN, flat=True),
-        out_specs=(
-            pl.BlockSpec((1, T, C, P_POLS), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T, C, P_POLS), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-        ),
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((S, T, C, P_POLS), jnp.float32),
-        jax.ShapeDtypeStruct((S, T, C, P_POLS), jnp.float32),
-    )
-    return pl.pallas_call(
-        kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            # the unrolled recurrence body needs ~19 MB scoped VMEM at the
-            # perf problem (T=128, C=16) — the 16 MB default OOMs
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-    )(
-        stg.aterm_index, stg.station1, stg.station2,
-        stg.uvw, stg.wavenumbers, po_full, lmn,
-        sub_flat[0], sub_flat[1], stg.sph_flat,
-        stg.at_re_flat, stg.at_im_flat, stg.at_re_flat, stg.at_im_flat,
-    )
+    lax.fori_loop(0, -(-nr_timesteps // tile_t), body, 0)
 
 
 @register(
-    "degridder", "pallas_v1",
-    "naive Pallas: full-phase sincos per (t,c,pixel), MXU pixel reduction",
+    "degridder",
+    "pallas_triton",
+    "one program per subgrid, Jones + taper prologue, separable phasor in "
+    "registers, TF32x3 dots (Pallas, Triton route)",
     family="pallas",
 )
-def degridder_pallas_v1(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, t_tile: int = 16,
-                        canonical=False):
-    return _degridder_direct(
-        params, sobs, subgrids, False, interpret, t_tile, canonical
-    )
-
-
-@register(
-    "degridder", "pallas_v2",
-    "channel-recurrence phasor: 2 sincos per (t,pixel), complex-mul per channel",
-    family="pallas", uniform_channels=True, fallback="pallas_v1",
-)
-def degridder_pallas_v2(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, t_tile: int = 32,
-                        canonical=False):
-    return _degridder_direct(
-        params, sobs, subgrids, True, interpret, t_tile, canonical
-    )
-
-
-# --------------------------------------------------------------------------
-# pallas_v3 / v4: separable-phasor kernels
-# --------------------------------------------------------------------------
-
-def _kernel_separable(aidx, st1, st2,
-                      upr_ref, vpr_ref, mur_ref,
-                      poxc_ref, poyc_ref, mcol_ref, npackt_ref,
-                      sub_re_ref, sub_im_ref,
-                      sph_ref, a1re_ref, a1im_ref, a2re_ref, a2im_ref,
-                      out_re_ref, out_im_ref,
-                      *, V, N, w_rank, precisions):
-    """vis[v,p] = Σ_r conj(coef_r) Σ_x Φx*[v,x] Σ_y Φy*[v,y]·(n^r⊙pix)[y, p·N+x]
-
-    V-on-lanes orientation: stage 1 contracts y via dot_general over the
-    SHARED LEADING axis of B [N(y), NP] and Φyᵀ [N(y), V] (no transposes
-    materialized); stage 2 is a full-lane-width elementwise contraction
-    against Φx*ᵀ [N, V] reduced over sublanes."""
-    NP = N * P_POLS
-    sph = sph_ref[...]                               # [N, N]
-    sub = [(sub_re_ref[0, p], sub_im_ref[0, p]) for p in range(P_POLS)]
-    a1 = [(a1re_ref[0, 0, p], a1im_ref[0, 0, p]) for p in range(P_POLS)]
-    a2 = [(a2re_ref[0, 0, p], a2im_ref[0, 0, p]) for p in range(P_POLS)]
-    pix = _prologue(sub, sph, a1, a2)
-    b_re = jnp.concatenate([p[0] for p in pix], axis=1)   # [N(y), P·N(x)]
-    b_im = jnp.concatenate([p[1] for p in pix], axis=1)
-
-    up = upr_ref[0]                                  # [1, V]
-    vp = vpr_ref[0]                                  # [1, V]
-    mu = mur_ref[0]                                  # [1, V]
-    m_col = mcol_ref[...]                            # [N, 1]
-
-    phase_y = poyc_ref[0] - m_col * vp               # [N, V]
-    phy_re, phy_im = jnp.cos(phase_y), jnp.sin(phase_y)
-
-    phase_x = poxc_ref[0] - m_col * up               # [N, V]
-    phx_re, phx_im = jnp.cos(phase_x), jnp.sin(phase_x)
-
-    npackt = npackt_ref[...]                         # [N(y), P·N]
-    rows_re = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-    rows_im = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-    cr = jnp.ones_like(mu)
-    ci = jnp.zeros_like(mu)
-    npow = jnp.ones_like(npackt)
-    # contract the shared leading (y) axis: [N, NP] × [N, V] -> [NP, V]
-    dims = (((0,), (0,)), ((), ()))
-    for r in range(w_rank):
-        if r:
-            # conj coefficient (−iμ)^r/r!: multiply by −iμ/r
-            cr, ci = ci * mu / r, -cr * mu / r
-            npow = npow * npackt
-        br = b_re * npow
-        bi = b_im * npow
-        mode = precisions[min(r, len(precisions) - 1)]
-        # R^T = Φy*·B transposed, as ONE packed dot per rank:
-        # [N, 2NP]×[N, 2V] -> [2NP, 2V] holds all four real products.
-        b2 = jnp.concatenate([br, bi], axis=1)             # [N, 2NP]
-        phy2 = jnp.concatenate([phy_re, phy_im], axis=1)   # [N, 2V]
-        prod = _dot_mixed(b2, phy2, mode, dims=dims)       # [2NP, 2V]
-        cr_t = prod[0:NP, 0:V] + prod[NP:2 * NP, V:2 * V]
-        ci_t = prod[NP:2 * NP, 0:V] - prod[0:NP, V:2 * V]
-        for p in range(P_POLS):
-            rp_re = cr_t[p * N:(p + 1) * N, :]       # [N(x), V]
-            rp_im = ci_t[p * N:(p + 1) * N, :]
-            sr, si = kcmul_conj(rp_re, rp_im, phx_re, phx_im)
-            vr = jnp.sum(sr, axis=0, keepdims=True)  # [1, V]
-            vi = jnp.sum(si, axis=0, keepdims=True)
-            er, ei = kcmul(vr, vi, cr, ci)
-            rows_re[p] = rows_re[p] + er
-            rows_im[p] = rows_im[p] + ei
-    out_re_ref[0] = jnp.concatenate(rows_re, axis=0)   # [P, V]
-    out_im_ref[0] = jnp.concatenate(rows_im, axis=0)
-
-
-def _degridder_separable(params, sobs, subgrids, w_rank, precisions, interpret,
-                         canonical=False):
-    return _degridder_separable_run(
-        params, stage(params, sobs, canonical), subgrids, w_rank, precisions,
-        interpret,
-    )
-
-
-def _degridder_separable_run(params, stg, subgrids, w_rank, precisions,
-                             interpret):
-    """Launch-only phase (see gridder._gridder_separable_run)."""
-    S = stg.uvw.shape[0]
-    T, C, N = params.nr_timesteps_subgrid, params.nr_channels, params.subgrid_size
-    V = T * C
-    npack = jnp.tile(stg.n_yx, (1, P_POLS))
-    if interpret is None:
-        interpret = use_interpret()
+def degridder_pallas_triton(params: IDGParams, sobs: SplitObservation,
+                            subgrids: Pair, w_rank: int = 1,
+                            precision=TF32_X3, interpret: bool = False):
+    """Visibilities pair f32[S, T, C, P] (see gridder_pallas_triton for
+    `w_rank` and `precision`)."""
+    check_shapes(params)
+    md = sobs.metadata
+    s_count = md.time_offset.shape[0]
+    t, c = params.nr_timesteps_subgrid, params.nr_channels
+    nr_pols = params.nr_correlations
+    tile_t = tile_timesteps(params, TILE_V)
+    t_pad = -(-t // tile_t) * tile_t
+    meta, pos = subgrid_tables(params, md)
+    l, m, n = lmn(params)
+    sub_shape = subgrids[0].shape[1:]
+    args = (meta, pos, subgrids[0], subgrids[1], sobs.uvw.reshape(-1, 3),
+            sobs.wavenumbers, l, m, n, sobs.spheroidal, sobs.at_re,
+            sobs.at_im)
+    in_specs = [subgrid_spec(meta.shape[1:]), subgrid_spec(pos.shape[1:]),
+                subgrid_spec(sub_shape), subgrid_spec(sub_shape)]
+    in_specs += [full_spec(a.shape) for a in args[4:]]
+    out_shape = jax.ShapeDtypeStruct((s_count, t_pad, c, nr_pols), jnp.float32)
     kernel = functools.partial(
-        _kernel_separable, V=V, N=N, w_rank=w_rank, precisions=precisions
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(S,),
-        in_specs=[
-            pl.BlockSpec((1, 1, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, 1), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N * P_POLS), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ] + _at_specs(N, flat=False),
-        out_specs=(
-            pl.BlockSpec((1, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((S, P_POLS, V), jnp.float32),
-        jax.ShapeDtypeStruct((S, P_POLS, V), jnp.float32),
-    )
+        _kernel, nr_timesteps=t, tile_t=tile_t, w_rank=w_rank,
+        precision=precision)
     re, im = pl.pallas_call(
-        kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-    )(
-        stg.aterm_index, stg.station1, stg.station2,
-        stg.up_row, stg.vp_row, stg.mu_row,
-        stg.po_x_col, stg.po_y_col, stg.mcol, npack,
-        subgrids[0], subgrids[1], stg.sph,
-        stg.at_re, stg.at_im, stg.at_re, stg.at_im,
-    )
-    re = jnp.moveaxis(re, 1, 2).reshape(S, T, C, P_POLS)
-    im = jnp.moveaxis(im, 1, 2).reshape(S, T, C, P_POLS)
+        kernel,
+        grid=(s_count,),
+        in_specs=in_specs,
+        out_specs=[subgrid_spec(out_shape.shape[1:])] * 2,
+        out_shape=[out_shape, out_shape],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="idg_degridder",
+    )(*args)
+    if t_pad != t:
+        re, im = re[:, :t], im[:, :t]
     return re, im
-
-
-@register(
-    "degridder", "pallas_v3",
-    "separable phasor: packed [V,2N]×[2N,2NP] MXU stage + VPU Φx* contraction",
-    family="pallas",
-)
-def degridder_pallas_v3(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, w_rank: int = 2,
-                        canonical=False):
-    return _degridder_separable(
-        params, sobs, subgrids, w_rank, ("highest",), interpret,
-        canonical=canonical,
-    )
-
-
-@register(
-    "degridder", "pallas_v4",
-    "v3 + mixed-precision MXU passes per rank",
-    family="pallas",
-)
-def degridder_pallas_v4(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, w_rank: int = 2,
-                        canonical=False):
-    return _degridder_separable(
-        params, sobs, subgrids, w_rank, rank_precisions(w_rank), interpret,
-        canonical=canonical,
-    )
-
-
-# --------------------------------------------------------------------------
-# pallas_v5: separable phasor with channel-recurrence generation (c-major)
-# --------------------------------------------------------------------------
-
-def _kernel_sep_recur(aidx, st1, st2,
-                      uvwr_ref, mur_ref, k_ref,
-                      poxc_ref, poyc_ref, mcol_ref, npack_ref,
-                      sub_re_ref, sub_im_ref,
-                      sph_ref, a1re_ref, a1im_ref, a2re_ref, a2im_ref,
-                      out_re_ref, out_im_ref,
-                      phyr_s, phyi_s, phxr_s, phxi_s,
-                      *, V, N, T, C, w_rank, precisions):
-    """v4's packed stage-1 dot, with Φ planes generated by the channel
-    recurrence (O(N·T) sincos; see gridder pallas_v5). c-major lanes;
-    assumes uniform channel spacing."""
-    NP = N * P_POLS
-    sph = sph_ref[...]
-    sub = [(sub_re_ref[0, p], sub_im_ref[0, p]) for p in range(P_POLS)]
-    a1 = [(a1re_ref[0, 0, p], a1im_ref[0, 0, p]) for p in range(P_POLS)]
-    a2 = [(a2re_ref[0, 0, p], a2im_ref[0, 0, p]) for p in range(P_POLS)]
-    pix = _prologue(sub, sph, a1, a2)
-    b_re = jnp.concatenate([p[0] for p in pix], axis=1)   # [N(y), P·N(x)]
-    b_im = jnp.concatenate([p[1] for p in pix], axis=1)
-
-    uvw = uvwr_ref[0]                               # [3, T]
-    k0 = k_ref[0, 0]
-    dk = k_ref[0, 1] - k0 if C > 1 else jnp.float32(0.0)
-    m_col = mcol_ref[...]                           # [N, 1]
-    u_row = uvw[0:1, :]
-    v_row = uvw[1:2, :]
-    py = poyc_ref[0] - m_col * (v_row * k0)         # [N, T]
-    px = poxc_ref[0] - m_col * (u_row * k0)
-    dpy = -(m_col * (v_row * dk))
-    dpx = -(m_col * (u_row * dk))
-    cy_re, cy_im = jnp.cos(py), jnp.sin(py)
-    cx_re, cx_im = jnp.cos(px), jnp.sin(px)
-    dy_re, dy_im = jnp.cos(dpy), jnp.sin(dpy)
-    dx_re, dx_im = jnp.cos(dpx), jnp.sin(dpx)
-    for c in range(C):
-        if c and c % 16 == 0:
-            # periodic exact resync bounds recurrence drift (engages for
-            # C > 16; matches the gridder kernels, gridder.py:452)
-            kc = k0 + c * dk
-            pyc = poyc_ref[0] - m_col * (v_row * kc)
-            pxc = poxc_ref[0] - m_col * (u_row * kc)
-            cy_re, cy_im = jnp.cos(pyc), jnp.sin(pyc)
-            cx_re, cx_im = jnp.cos(pxc), jnp.sin(pxc)
-        lo = c * T
-        phyr_s[:, lo:lo + T] = cy_re
-        phyi_s[:, lo:lo + T] = cy_im
-        phxr_s[:, lo:lo + T] = cx_re
-        phxi_s[:, lo:lo + T] = cx_im
-        if c + 1 < C:
-            cy_re, cy_im = kcmul(cy_re, cy_im, dy_re, dy_im)
-            cx_re, cx_im = kcmul(cx_re, cx_im, dx_re, dx_im)
-    phy_re = phyr_s[...]
-    phy_im = phyi_s[...]
-    phx_re = phxr_s[...]
-    phx_im = phxi_s[...]
-
-    mu = mur_ref[0]                                 # [1, V]
-    npackt = npack_ref[...]
-    rows_re = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-    rows_im = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-    cr = jnp.ones_like(mu)
-    ci = jnp.zeros_like(mu)
-    npow = jnp.ones_like(npackt)
-    dims = (((0,), (0,)), ((), ()))
-    for r in range(w_rank):
-        if r:
-            cr, ci = ci * mu / r, -cr * mu / r
-            npow = npow * npackt
-        br = b_re * npow
-        bi = b_im * npow
-        mode = precisions[min(r, len(precisions) - 1)]
-        b2 = jnp.concatenate([br, bi], axis=1)             # [N, 2NP]
-        phy2 = jnp.concatenate([phy_re, phy_im], axis=1)   # [N, 2V]
-        prod = _dot_mixed(b2, phy2, mode, dims=dims)       # [2NP, 2V]
-        cr_t = prod[0:NP, 0:V] + prod[NP:2 * NP, V:2 * V]
-        ci_t = prod[NP:2 * NP, 0:V] - prod[0:NP, V:2 * V]
-        for p in range(P_POLS):
-            rp_re = cr_t[p * N:(p + 1) * N, :]
-            rp_im = ci_t[p * N:(p + 1) * N, :]
-            sr, si = kcmul_conj(rp_re, rp_im, phx_re, phx_im)
-            vr = jnp.sum(sr, axis=0, keepdims=True)
-            vi = jnp.sum(si, axis=0, keepdims=True)
-            er, ei = kcmul(vr, vi, cr, ci)
-            rows_re[p] = rows_re[p] + er
-            rows_im[p] = rows_im[p] + ei
-    out_re_ref[0] = jnp.concatenate(rows_re, axis=0)
-    out_im_ref[0] = jnp.concatenate(rows_im, axis=0)
-
-
-def _degridder_sep_recur(params, sobs, subgrids, w_rank, precisions, interpret,
-                         canonical=False):
-    return _degridder_sep_recur_run(
-        params, stage(params, sobs, canonical), subgrids, w_rank, precisions,
-        interpret,
-    )
-
-
-# Subgrids per pallas_call (remote AOT compile-helper memory bound).
-# IDG_MAX_CHUNK overrides for chunk-size A/Bs and for exercising the
-# chunked paths at test problem sizes.
-MAX_CHUNK = get_env_var("IDG_MAX_CHUNK", 8192)
-
-# polstack-batch rungs whose kernels auto-detect row-form ([S, N, N·P])
-# subgrids/pieces (rows_in) — the single source for the callers that
-# pre-convert boundary layouts (parallel.sharded.shard_staged_inputs,
-# ops.api.staged_degridder_pieces_chunk_consumers)
-ROWS_IN_VERSIONS = ("pallas_v7", "pallas_v8")
-
-
-def _chunked(run_one, params, stg, subgrids, *a, **kw):
-    """Split very large subgrid batches into multiple pallas_calls.
-
-    Chunks are padded to a UNIFORM size so the module contains exactly one
-    Mosaic kernel shape — modules with two differently-shaped kernels crash
-    the remote AOT compile helper (S=16400 fails, S=8120 compiles).
-
-    A `fuse_oyx` kwarg (the fused-prologue roll offsets, [S, 2]) is
-    padded and sliced alongside the per-subgrid arrays."""
-    import dataclasses as _dc
-
-    S = stg.uvw.shape[0]
-    if S <= MAX_CHUNK:
-        return run_one(params, stg, subgrids, *a, **kw)
-    fuse_oyx = kw.pop("fuse_oyx", None)
-    if fuse_oyx is not None:
-        fuse_oyx = jnp.asarray(fuse_oyx, jnp.int32).reshape(-1, 2)
-    n_chunks = -(-S // MAX_CHUNK)
-    s_pad = n_chunks * MAX_CHUNK
-    if s_pad != S:
-        pad = s_pad - S
-        from .common import _PER_SUBGRID_FIELDS
-
-        updates = {
-            name: jnp.pad(
-                getattr(stg, name),
-                [(0, pad)] + [(0, 0)] * (getattr(stg, name).ndim - 1),
-            )
-            for name in _PER_SUBGRID_FIELDS
-            if getattr(stg, name) is not None
-        }
-        stg = _dc.replace(stg, **updates)
-        subgrids = tuple(
-            jnp.pad(s, [(0, pad)] + [(0, 0)] * (s.ndim - 1)) for s in subgrids
-        )
-        if fuse_oyx is not None:
-            fuse_oyx = jnp.pad(fuse_oyx, ((0, pad), (0, 0)))
-    outs = []
-    for lo in range(0, s_pad, MAX_CHUNK):
-        hi = lo + MAX_CHUNK
-        sub_c = (subgrids[0][lo:hi], subgrids[1][lo:hi])
-        if fuse_oyx is not None:
-            kw["fuse_oyx"] = fuse_oyx[lo:hi]
-        outs.append(run_one(params, slice_staged(stg, lo, hi), sub_c, *a, **kw))
-    re = jnp.concatenate([o[0] for o in outs], axis=0)
-    im = jnp.concatenate([o[1] for o in outs], axis=0)
-    return re[:S], im[:S]
-
-
-def _degridder_sep_recur_run(params, stg, subgrids, w_rank, precisions,
-                             interpret):
-    """Launch-only phase."""
-    return _chunked(
-        _degridder_sep_recur_one, params, stg, subgrids, w_rank, precisions,
-        interpret,
-    )
-
-
-def _degridder_sep_recur_one(params, stg, subgrids, w_rank, precisions,
-                             interpret):
-    S = stg.uvw.shape[0]
-    T, C, N = params.nr_timesteps_subgrid, params.nr_channels, params.subgrid_size
-    V = T * C
-    npack = jnp.tile(stg.n_yx, (1, P_POLS))
-    if interpret is None:
-        interpret = use_interpret()
-    kernel = functools.partial(
-        _kernel_sep_recur, V=V, N=N, T=T, C=C, w_rank=w_rank,
-        precisions=precisions,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(S,),
-        in_specs=[
-            pl.BlockSpec((1, 3, T), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, C), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, 1), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N * P_POLS), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ] + _at_specs(N, flat=False),
-        out_specs=(
-            pl.BlockSpec((1, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((N, V), jnp.float32),
-            pltpu.VMEM((N, V), jnp.float32),
-            pltpu.VMEM((N, V), jnp.float32),
-            pltpu.VMEM((N, V), jnp.float32),
-        ],
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((S, P_POLS, V), jnp.float32),
-        jax.ShapeDtypeStruct((S, P_POLS, V), jnp.float32),
-    )
-    re, im = pl.pallas_call(
-        kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-    )(
-        stg.aterm_index, stg.station1, stg.station2,
-        stg.uvw_rows, stg.mu_row_cm, stg.wavenumbers,
-        stg.po_x_col, stg.po_y_col, stg.mcol, npack,
-        subgrids[0], subgrids[1], stg.sph,
-        stg.at_re, stg.at_im, stg.at_re, stg.at_im,
-    )
-    # c-major rows [P, V=C·T] → [S, T, C, P]
-    re = jnp.transpose(re.reshape(S, P_POLS, C, T), (0, 3, 2, 1))
-    im = jnp.transpose(im.reshape(S, P_POLS, C, T), (0, 3, 2, 1))
-    return re, im
-
-
-@register(
-    "degridder", "pallas_v5",
-    "v4 + channel-recurrence phasor generation: O(N·T) sincos, c-major lanes",
-    family="pallas", uniform_channels=True, fallback="pallas_v4",
-)
-def degridder_pallas_v5(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, w_rank: int = 2,
-                        canonical=False):
-    # Uniform channel spacing assumed (reference v8's assumption).
-    return _degridder_sep_recur(
-        params, sobs, subgrids, w_rank, rank_precisions(w_rank), interpret, canonical
-    )
-
-
-def degridder_pallas_v3_staged(params, stg, subgrids, interpret=None, w_rank: int = 2):
-    return _degridder_separable_run(params, stg, subgrids, w_rank, ("highest",), interpret)
-
-
-def degridder_pallas_v4_staged(params, stg, subgrids, interpret=None, w_rank: int = 2):
-    return _degridder_separable_run(params, stg, subgrids, w_rank, rank_precisions(w_rank), interpret)
-
-
-def degridder_pallas_v5_staged(params, stg, subgrids, interpret=None, w_rank: int = 2):
-    return _degridder_sep_recur_run(params, stg, subgrids, w_rank, rank_precisions(w_rank), interpret)
-
-
-# --------------------------------------------------------------------------
-# pallas_v6: pol-stacked x-first adjoint (full-M MXU dot)
-# --------------------------------------------------------------------------
-
-def _kernel_polstack(aidx, st1, st2,
-                     uvwr_ref, mur_ref, k_ref,
-                     poxc_ref, poyc_ref, mcol_ref, n_ref,
-                     sub_re_ref, sub_im_ref,
-                     sph_ref, a1re_ref, a1im_ref, a2re_ref, a2im_ref,
-                     out_re_ref, out_im_ref,
-                     phyr_s, phyi_s, phxr_s, phxi_s,
-                     *, V, N, T, C, w_rank, precisions):
-    """x-first contraction with all four pols stacked on the matmul M axis:
-
-      D_p[y, v] = Σ_x B_p[y,x]·Φx*[v,x]   (one [4N, 2N]×[2N, 2V] dot/rank)
-      vis[v,p]  = conj(coef_r) Σ_y Φy*[v,y]·D_p[y,v]   (VPU sublane reduce)
-
-    M = 4N = 128 fills the MXU (v3-v5 run at M=64 or K=32); the intermediate
-    is [4N, 2V] — 4× smaller than v3-v5's [2NP, 2V] stage-1 output. Φ planes
-    are recurrence-generated as in v5 (uniform channel spacing assumed)."""
-    sph = sph_ref[...]
-    sub = [(sub_re_ref[0, p], sub_im_ref[0, p]) for p in range(P_POLS)]
-    a1 = [(a1re_ref[0, 0, p], a1im_ref[0, 0, p]) for p in range(P_POLS)]
-    a2 = [(a2re_ref[0, 0, p], a2im_ref[0, 0, p]) for p in range(P_POLS)]
-    pix = _prologue(sub, sph, a1, a2)               # per-pol [N(y), N(x)]
-
-    uvw = uvwr_ref[0]                               # [3, T]
-    k0 = k_ref[0, 0]
-    dk = k_ref[0, 1] - k0 if C > 1 else jnp.float32(0.0)
-    m_col = mcol_ref[...]                           # [N, 1]
-    u_row = uvw[0:1, :]
-    v_row = uvw[1:2, :]
-    py = poyc_ref[0] - m_col * (v_row * k0)         # [N, T]
-    px = poxc_ref[0] - m_col * (u_row * k0)
-    dpy = -(m_col * (v_row * dk))
-    dpx = -(m_col * (u_row * dk))
-    cy_re, cy_im = jnp.cos(py), jnp.sin(py)
-    cx_re, cx_im = jnp.cos(px), jnp.sin(px)
-    dy_re, dy_im = jnp.cos(dpy), jnp.sin(dpy)
-    dx_re, dx_im = jnp.cos(dpx), jnp.sin(dpx)
-    for c in range(C):
-        if c and c % 16 == 0:
-            # periodic exact resync bounds recurrence drift (engages for
-            # C > 16; matches the gridder kernels, gridder.py:452)
-            kc = k0 + c * dk
-            pyc = poyc_ref[0] - m_col * (v_row * kc)
-            pxc = poxc_ref[0] - m_col * (u_row * kc)
-            cy_re, cy_im = jnp.cos(pyc), jnp.sin(pyc)
-            cx_re, cx_im = jnp.cos(pxc), jnp.sin(pxc)
-        lo = c * T
-        phyr_s[:, lo:lo + T] = cy_re
-        phyi_s[:, lo:lo + T] = cy_im
-        phxr_s[:, lo:lo + T] = cx_re
-        phxi_s[:, lo:lo + T] = cx_im
-        if c + 1 < C:
-            cy_re, cy_im = kcmul(cy_re, cy_im, dy_re, dy_im)
-            cx_re, cx_im = kcmul(cx_re, cx_im, dx_re, dx_im)
-    phy_re = phyr_s[...]                            # [N, V]
-    phy_im = phyi_s[...]
-    phx_re = phxr_s[...]
-    phx_im = phxi_s[...]
-
-    # rhs [2N, 2V]: conj(Φx)ᵀ packed for the complex product — built and
-    # bf16-split ONCE (the per-rank lhs varies, Φx does not)
-    rhs = jnp.concatenate(
-        [
-            jnp.concatenate([phx_re, -phx_im], axis=1),
-            jnp.concatenate([phx_im, phx_re], axis=1),
-        ],
-        axis=0,
-    )
-    rh = rhs.astype(jnp.bfloat16)
-    rl = (rhs - rh.astype(jnp.float32)).astype(jnp.bfloat16)
-    rha = jnp.concatenate([rh, rl], axis=0)
-    rhb = jnp.concatenate([rl, rh], axis=0)
-
-    mu = mur_ref[0]                                 # [1, V]
-    n_yx = n_ref[...]                               # [N, N]
-    rows_re = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-    rows_im = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-    cr = jnp.ones_like(mu)
-    ci = jnp.zeros_like(mu)
-    npow = jnp.ones_like(n_yx)
-    for r in range(w_rank):
-        if r:
-            cr, ci = ci * mu / r, -cr * mu / r
-            npow = npow * n_yx
-        # lhs [4N, 2N]: pol-major stack of [B_re·n^r | B_im·n^r]
-        lhs = jnp.concatenate(
-            [
-                jnp.concatenate([p[0] * npow, p[1] * npow], axis=1)
-                for p in pix
-            ],
-            axis=0,
-        )
-        prod = _polstack_dot(
-            lhs, rha, rhb, rh, precisions[min(r, len(precisions) - 1)]
-        )                                            # [4N, 2V]
-        # stage 2 per pol: slice the pol block (no [4N, V] Φy replication
-        # copies), multiply by conj(Φy)ᵀ, sublane-reduce
-        d_re = prod[:, 0:V]
-        d_im = prod[:, V:2 * V]
-        for p in range(P_POLS):
-            dr = d_re[p * N:(p + 1) * N]
-            di = d_im[p * N:(p + 1) * N]
-            sr = dr * phy_re + di * phy_im           # · conj(Φy)ᵀ
-            si = di * phy_re - dr * phy_im
-            vr = jnp.sum(sr, axis=0, keepdims=True)
-            vi = jnp.sum(si, axis=0, keepdims=True)
-            er, ei = kcmul(vr, vi, cr, ci)
-            rows_re[p] = rows_re[p] + er
-            rows_im[p] = rows_im[p] + ei
-    out_re_ref[0] = jnp.concatenate(rows_re, axis=0)
-    out_im_ref[0] = jnp.concatenate(rows_im, axis=0)
-
-
-def _polstack_dot(lhs_f32, rha, rhb, rh, mode):
-    """A·B dot for the pol-stacked kernels, RHS hoisted and pre-split.
-
-    rha/rhb: the "3x2k" K-packed [4N, 2V] bf16 operands ([rh;rl], [rl;rh])
-    built ONCE per subgrid (the per-rank lhs changes, the Φx rhs does not);
-    rh: the plain hi half for 'default'-precision ranks."""
-    def d(a, b):
-        return jax.lax.dot_general(
-            a, b, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    lh = lhs_f32.astype(jnp.bfloat16)
-    if mode == "default":
-        return d(lh, rh)
-    ll = (lhs_f32 - lh.astype(jnp.float32)).astype(jnp.bfloat16)
-    l2 = jnp.concatenate([lh, ll], axis=1)
-    return d(l2, rha) + d(l2, rhb)
-
-
-def _polstack_dot_q(lhs_f32, rha, mode):
-    """A·B dot against a quadrant-assembled K-packed RHS (qsplit path).
-
-    rha: [4N, 2V] bf16 = [rh; rl] built directly from per-quadrant hi/lo
-    splits — rhb is never materialized: the second "3x2k" pass swaps the
-    halves of the TINY [4N, 4N] lhs instead
-    (d([lh|ll],[rl;rh]) ≡ d([ll|lh],[rh;rl]), same products, same f32
-    accumulation grouping → bit-identical to _polstack_dot)."""
-    def d(a, b):
-        return jax.lax.dot_general(
-            a, b, dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    k = lhs_f32.shape[1]
-    lh = lhs_f32.astype(jnp.bfloat16)
-    if mode == "default":
-        return d(lh, rha[:k])
-    ll = (lhs_f32 - lh.astype(jnp.float32)).astype(jnp.bfloat16)
-    l2a = jnp.concatenate([lh, ll], axis=1)
-    l2b = jnp.concatenate([ll, lh], axis=1)
-    return d(l2a, rha) + d(l2b, rha)
-
-
-def _degridder_polstack(params, sobs, subgrids, w_rank, precisions, interpret,
-                        canonical=False):
-    return _degridder_polstack_run(
-        params, stage(params, sobs, canonical), subgrids, w_rank, precisions,
-        interpret,
-    )
-
-
-def _degridder_polstack_run(params, stg, subgrids, w_rank, precisions,
-                            interpret):
-    return _chunked(
-        _degridder_polstack_one, params, stg, subgrids, w_rank, precisions,
-        interpret,
-    )
-
-
-def _degridder_polstack_one(params, stg, subgrids, w_rank, precisions,
-                            interpret):
-    S = stg.uvw.shape[0]
-    T, C, N = params.nr_timesteps_subgrid, params.nr_channels, params.subgrid_size
-    V = T * C
-    if interpret is None:
-        interpret = use_interpret()
-    kernel = functools.partial(
-        _kernel_polstack, V=V, N=N, T=T, C=C, w_rank=w_rank,
-        precisions=precisions,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(S,),
-        in_specs=[
-            pl.BlockSpec((1, 3, T), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, C), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, 1), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ] + _at_specs(N, flat=False),
-        out_specs=(
-            pl.BlockSpec((1, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((N, V), jnp.float32),
-            pltpu.VMEM((N, V), jnp.float32),
-            pltpu.VMEM((N, V), jnp.float32),
-            pltpu.VMEM((N, V), jnp.float32),
-        ],
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((S, P_POLS, V), jnp.float32),
-        jax.ShapeDtypeStruct((S, P_POLS, V), jnp.float32),
-    )
-    re, im = pl.pallas_call(
-        kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-    )(
-        stg.aterm_index, stg.station1, stg.station2,
-        stg.uvw_rows, stg.mu_row_cm, stg.wavenumbers,
-        stg.po_x_col, stg.po_y_col, stg.mcol, stg.n_yx,
-        subgrids[0], subgrids[1], stg.sph,
-        stg.at_re, stg.at_im, stg.at_re, stg.at_im,
-    )
-    re = jnp.transpose(re.reshape(S, P_POLS, C, T), (0, 3, 2, 1))
-    im = jnp.transpose(im.reshape(S, P_POLS, C, T), (0, 3, 2, 1))
-    return re, im
-
-
-@register(
-    "degridder", "pallas_v6",
-    "pol-stacked x-first adjoint: full-M [4N,2N]x[2N,2V] MXU dot per rank",
-    family="pallas", uniform_channels=True, fallback="pallas_v4",
-)
-def degridder_pallas_v6(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, w_rank: int = 2,
-                        canonical=False):
-    # Uniform channel spacing assumed (recurrence-generated phases).
-    return _degridder_polstack(
-        params, sobs, subgrids, w_rank, degridder_precisions(w_rank), interpret, canonical
-    )
-
-
-def degridder_pallas_v6_staged(params, stg, subgrids, interpret=None, w_rank: int = 2):
-    return _degridder_polstack_run(params, stg, subgrids, w_rank, degridder_precisions(w_rank), interpret)
-
-
-# --------------------------------------------------------------------------
-# pallas_v7: v6 with multi-subgrid grid steps
-# --------------------------------------------------------------------------
-
-def _kernel_polstack_batch(aidx, st1, st2,
-                           uvwr_ref, mur_ref, k_ref,
-                           poxc_ref, poyc_ref, mcol_ref, n_ref,
-                           sub_re_ref, sub_im_ref, sph_ref,
-                           *rest,
-                           V, N, T, C, w_rank, precisions, batch, ablate="",
-                           cfold=False, qsplit=False, hswap=False,
-                           sstore=False, dbuf=False, swpipe=False,
-                           kmerge=0, fuse=False, rows_in=False):
-    """v6's body unrolled over `batch` subgrids per grid step (see
-    gridder pallas_v6 for the amortization rationale).
-
-    `ablate` (debug-only, wrong results): 'no_dot' replaces the MXU stage
-    with a cheap convert, 'no_stage2' replaces the VPU Φy contraction with
-    a row slice, 'no_recur' keeps the Φ-plane stores but drops the
-    recurrence complex multiplies — used to attribute the step on hardware.
-
-    `cfold=True` (the round-3 schedule, hardware-A/B'd): the rank-r Taylor
-    coefficient (−iμ)^r/r! is folded into the RHS (conj(Φx)·c_r is a [N,V]
-    column scale) and the per-rank dot outputs are ACCUMULATED, so the VPU
-    stage-2 (Φy* contraction — 0.91 µs/subgrid of the 3.4 µs step in the
-    round-3 ablation) runs ONCE per pol instead of once per (rank, pol).
-    Mathematically identical (c_r is linear, applied before the reduction);
-    the rank-r rhs is re-converted to bf16 after scaling, so the relative
-    rounding of the correction term is unchanged.
-
-    `qsplit=True` (round-3 VPU-diet schedule): the [2N, 2V] f32 RHS is
-    never materialized — the K-packed bf16 operand is assembled directly
-    from per-quadrant hi/lo splits of the Φx planes, and the second
-    "3x2k" pass reuses the SAME rha via the identity
-    d([lh|ll],[rl;rh]) = d([ll|lh],[rh;rl]) — swapping halves of the
-    tiny [4N, 4N] lhs instead of building the big [4N, 2V] rhb. Same
-    four split products in the same f32 accumulation grouping →
-    bit-identical results; saves ~18·N·V VPU op-equivalents per subgrid
-    of concat/convert traffic on a VPU-bound kernel.
-
-    `hswap=True` (round-3): qsplit's dot identity WITHOUT its quadrant
-    RHS assembly — rha = [rh; rl] is built the standard way (full-array
-    f32 concat + hi/lo split, no sub-tile bf16 packing), and the second
-    "3x2k" pass swaps the halves of the tiny lhs instead of building the
-    [4N, 2V] rhb (d([lh|ll],[rl;rh]) ≡ d([ll|lh],[rh;rl]), bit-identical:
-    a simultaneous K-permutation of both operands). Saves one [4N, 2V]
-    bf16 concat per subgrid.
-
-    `sstore=True` (round-3): the channel loop stores the recurrence
-    phasor directly into the four quadrants of a [2N, 2V] f32 rhs
-    scratch ([[Φx_re, −Φx_im], [Φx_im, Φx_re]]) instead of two [N, V]
-    Φx planes, so the big f32 rhs concat is never materialized; the
-    cfold rank scale reads Φx back as quadrant slices. Same values in
-    the same positions → bit-identical.
-
-    `dbuf=True` (round-4): the Φ scratch planes get a leading buffer
-    axis indexed b%2, so subgrid b+1's phasor-generation stores no
-    longer alias the planes subgrid b's stage-2 is still reading —
-    without it the unrolled chain serializes as
-    dot(b)→stage2(b)→Φgen(b+1) and the per-subgrid VPU work (Φ
-    recurrence + RHS assembly + stage-2, ~1.1 µs) sits exposed next to
-    the ~1.9 µs of MXU passes instead of hiding under them. Same
-    stores, same values → bit-identical. Measured flat on its own
-    (probe17: Mosaic does not reorder across the unrolled bodies) —
-    it exists as the buffer substrate for `swpipe`.
-
-    `swpipe=True` (round-4): explicit depth-2 software pipeline —
-    phase A(b) = prologue + Φ planes + RHS assembly + the MXU rank
-    dots; phase B(b) = the stage-2 Φy* VPU contraction. The schedule
-    A(0), A(1), B(0), A(2), B(1), … puts the NEXT subgrid's VPU work
-    between a subgrid's dot issue and its consumption in program
-    order, which is what Mosaic's in-order scheduler needs to run the
-    Φ recurrence under the MXU passes. Requires dbuf (B(b) reads slot
-    b%2 after A(b+1) wrote slot (b+1)%2). Supports the shipping
-    schedule only (cfold or rank-1, default RHS assembly); the runner
-    clears it otherwise. Bit-identical: same ops, reordered.
-
-    `kmerge` (round-4, swpipe path only): fuse the per-rank MXU passes
-    into fewer dots by packing the contraction axis — the "3x2k" pass
-    pair d([lh|ll],[rh;rl]) + d([lh|ll],[rl;rh]) and every rank-folded
-    correction are K-concatenated so the MXU's internal f32
-    accumulator replaces the per-pass [4N,2V] f32 adds (and the
-    rha/rhb double concat collapses to one). kmerge=1: ONE dot
-    (K=10N=320 at the shipping rank-2 policy); kmerge=2: one K=8N dot
-    for the rank-0 signal + one aligned K=2N dot per correction;
-    kmerge=3: like 1 but drops the second-order ll·rl split product
-    (~2⁻¹⁶ relative) from each "3x2k" rank — the classic bf16 3-product
-    scheme, K=8N=256 at the shipping policy (the 4th product was only
-    ever included because the pass-pair packing made it free).
-    NOT bit-identical (same products, MXU-internal accumulation
-    grouping; kmerge=3 drops one) — gated by the 1e-5 comparator like
-    every rung."""
-    at_refs = rest[:4 * batch]
-    pos = 4 * batch
-    if fuse:
-        # fused grid-stage prologue inputs: per-subgrid roll offsets and
-        # the folded-shift FORWARD DFT factors, pre-split to bf16 hi/lo
-        # and K-packed on the host (constants — the roll-back phases
-        # apply to the uv OUTPUT, mirroring _finish_extract's DFT→phase
-        # order)
-        (oyx_ref, a2k_ref,
-         b4ra_ref, b4rb_ref, b4ia_ref, b4ib_ref) = rest[pos:pos + 6]
-        pos += 6
-    tail = rest[pos:]
-    fsub_re_s = fsub_im_s = None
-    if fuse:
-        # fused-prologue hand-off scratches: the converted uv tiles are
-        # STORED here and reloaded per subgrid, instead of holding
-        # 2·B·[N, NP] live values across the whole step (which forced
-        # spills with miserable scheduling: +17 ms vs +7 expected on the
-        # round-5 parts probe)
-        tail, (fsub_re_s, fsub_im_s) = tail[:-2], tail[-2:]
-    if sstore:
-        out_re_ref, out_im_ref, phyr_s, phyi_s, rhs_s = tail
-        phxr_s = phxi_s = None
-    else:
-        out_re_ref, out_im_ref, phyr_s, phyi_s, phxr_s, phxi_s = tail
-        rhs_s = None
-    sph = sph_ref[...]
-    k0 = k_ref[0, 0]
-    dk = k_ref[0, 1] - k0 if C > 1 else jnp.float32(0.0)
-    m_col = mcol_ref[...]
-    n_yx = n_ref[...]
-
-    fsubs = None
-    if fuse:
-        # Fused grid-stage prologue: the step's PIECES (block-rolled
-        # image tiles from the range-extract kernel, arriving through
-        # sub_re/im_ref) become uv subgrids here — forward folded-shift
-        # DFT on the MXU through CONSTANT pre-split factors, batched
-        # across the whole step (stage 1: shared [Wfᵀre; Wfᵀim] LHS,
-        # pieces on COLUMNS; stage 2: shared pol-block-diag Wf RHS,
-        # b-blocks restacked on ROWS), then the per-subgrid roll-back
-        # phases elementwise on the uv output (sign=+1, shifted —
-        # exactly _finish_extract's order). Mirrors the gridder's fused
-        # epilogue (gridder.py:_kernel_sep_recur_batch) in reverse.
-        from .gridder import _fused_dft_apply, _roll_phase_outer
-
-        NP = N * P_POLS
-        if rows_in:
-            # pieces arrive in the prologue's native [N, N·P] row form
-            # (grid_to_subgrids_ranges(pieces="rows")): no per-pol
-            # concat, and the HBM array carries exact (8,128) tiles —
-            # the 4-D form's 32-lane dim is physically lane-padded 4×
-            # and cost ~8.8 ms/pass of XLA boundary copies
-            pcs = [(sub_re_ref[b], sub_im_ref[b]) for b in range(batch)]
-        else:
-            pcs = [
-                (jnp.concatenate([sub_re_ref[b, p] for p in range(P_POLS)],
-                                 axis=1),
-                 jnp.concatenate([sub_im_ref[b, p] for p in range(P_POLS)],
-                                 axis=1))
-                for b in range(batch)
-            ]
-        outs = _fused_dft_apply(
-            pcs, a2k_ref, (b4ra_ref, b4rb_ref, b4ia_ref, b4ib_ref), N,
-        )
-        for b, (o_re, o_im) in enumerate(outs):
-            ph_re, ph_im = _roll_phase_outer(
-                oyx_ref[b, 0, 0], oyx_ref[b, 0, 1], N, NP, sign=+1.0
-            )
-            fsub_re_s[b] = o_re * ph_re - o_im * ph_im
-            fsub_im_s[b] = o_re * ph_im + o_im * ph_re
-
-    def _sub_tiles(b):
-        if fuse and ablate != "fuse_raw":
-            re_b = fsub_re_s[b]
-            im_b = fsub_im_s[b]
-            return [(re_b[:, p * N:(p + 1) * N],
-                     im_b[:, p * N:(p + 1) * N])
-                    for p in range(P_POLS)]
-        # ablate == "fuse_raw" (debug-only, wrong results): prologue
-        # computes + stores but the main loop consumes the raw refs —
-        # attributes prologue compute vs its consumption coupling
-        if rows_in:
-            return [(sub_re_ref[b][:, p * N:(p + 1) * N],
-                     sub_im_ref[b][:, p * N:(p + 1) * N])
-                    for p in range(P_POLS)]
-        return [(sub_re_ref[b, p], sub_im_ref[b, p]) for p in range(P_POLS)]
-
-    if swpipe:
-        def _phase_a(b, sb):
-            sub = _sub_tiles(b)
-            a1 = [(at_refs[4 * b + 0][0, 0, p], at_refs[4 * b + 1][0, 0, p])
-                  for p in range(P_POLS)]
-            a2 = [(at_refs[4 * b + 2][0, 0, p], at_refs[4 * b + 3][0, 0, p])
-                  for p in range(P_POLS)]
-            pix = _prologue(sub, sph, a1, a2)
-            uvw = uvwr_ref[b]
-            u_row = uvw[0:1, :]
-            v_row = uvw[1:2, :]
-            py = poyc_ref[b] - m_col * (v_row * k0)
-            px = poxc_ref[b] - m_col * (u_row * k0)
-            dpy = -(m_col * (v_row * dk))
-            dpx = -(m_col * (u_row * dk))
-            cy_re, cy_im = jnp.cos(py), jnp.sin(py)
-            cx_re, cx_im = jnp.cos(px), jnp.sin(px)
-            dy_re, dy_im = jnp.cos(dpy), jnp.sin(dpy)
-            dx_re, dx_im = jnp.cos(dpx), jnp.sin(dpx)
-            for c in range(C):
-                if c and c % 16 == 0:
-                    kc = k0 + c * dk
-                    pyc = poyc_ref[b] - m_col * (v_row * kc)
-                    pxc = poxc_ref[b] - m_col * (u_row * kc)
-                    cy_re, cy_im = jnp.cos(pyc), jnp.sin(pyc)
-                    cx_re, cx_im = jnp.cos(pxc), jnp.sin(pxc)
-                lo = c * T
-                phyr_s[sb, :, lo:lo + T] = cy_re
-                phyi_s[sb, :, lo:lo + T] = cy_im
-                phxr_s[sb, :, lo:lo + T] = cx_re
-                phxi_s[sb, :, lo:lo + T] = cx_im
-                if c + 1 < C:
-                    cy_re, cy_im = kcmul(cy_re, cy_im, dy_re, dy_im)
-                    cx_re, cx_im = kcmul(cx_re, cx_im, dx_re, dx_im)
-            phx_re = phxr_s[sb]
-            phx_im = phxi_s[sb]
-            if kmerge:
-                def d(a, bm):
-                    return jax.lax.dot_general(
-                        a, bm, dimension_numbers=(((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )
-
-                mu = mur_ref[b]
-                cr = jnp.ones_like(mu)
-                ci = jnp.zeros_like(mu)
-                npow = jnp.ones_like(n_yx)
-                lhs_parts, rhs_parts, prod_sep = [], [], []
-                for r in range(w_rank):
-                    if r:
-                        cr, ci = ci * mu / r, -cr * mu / r
-                        npow = npow * n_yx
-                    lhs = jnp.concatenate(
-                        [
-                            jnp.concatenate([p[0] * npow, p[1] * npow],
-                                            axis=1)
-                            for p in pix
-                        ],
-                        axis=0,
-                    )
-                    lh = lhs.astype(jnp.bfloat16)
-                    mode = precisions[min(r, len(precisions) - 1)]
-                    # rank-folded conj(Φx)·c_r packing (c_0 = 1)
-                    xre = phx_re if r == 0 else phx_re * cr + phx_im * ci
-                    xim = -phx_im if r == 0 else phx_re * ci - phx_im * cr
-                    rhs_r = jnp.concatenate(
-                        [
-                            jnp.concatenate([xre, xim], axis=1),
-                            jnp.concatenate([-xim, xre], axis=1),
-                        ],
-                        axis=0,
-                    )
-                    rh_r = rhs_r.astype(jnp.bfloat16)
-                    if mode == "default":
-                        lp, rp = [lh], [rh_r]
-                    else:
-                        ll = (lhs - lh.astype(jnp.float32)).astype(
-                            jnp.bfloat16)
-                        rl_r = (rhs_r - rh_r.astype(jnp.float32)).astype(
-                            jnp.bfloat16)
-                        if kmerge == 3:
-                            lp, rp = [lh, lh, ll], [rh_r, rl_r, rh_r]
-                        else:
-                            lp, rp = ([lh, ll, lh, ll],
-                                      [rh_r, rl_r, rl_r, rh_r])
-                    if kmerge == 2 and r:
-                        prod_sep.append(
-                            d(jnp.concatenate(lp, axis=1),
-                              jnp.concatenate(rp, axis=0))
-                        )
-                    else:
-                        lhs_parts += lp
-                        rhs_parts += rp
-                prod_acc = d(
-                    jnp.concatenate(lhs_parts, axis=1),
-                    jnp.concatenate(rhs_parts, axis=0),
-                )
-                for pr in prod_sep:
-                    prod_acc = prod_acc + pr
-                return prod_acc
-            rhs = jnp.concatenate(
-                [
-                    jnp.concatenate([phx_re, -phx_im], axis=1),
-                    jnp.concatenate([phx_im, phx_re], axis=1),
-                ],
-                axis=0,
-            )
-            rh = rhs.astype(jnp.bfloat16)
-            rl = (rhs - rh.astype(jnp.float32)).astype(jnp.bfloat16)
-            rha = jnp.concatenate([rh, rl], axis=0)
-            rhb = jnp.concatenate([rl, rh], axis=0)
-            mu = mur_ref[b]
-            cr = jnp.ones_like(mu)
-            ci = jnp.zeros_like(mu)
-            npow = jnp.ones_like(n_yx)
-            prod_acc = None
-            for r in range(w_rank):
-                if r:
-                    cr, ci = ci * mu / r, -cr * mu / r
-                    npow = npow * n_yx
-                lhs = jnp.concatenate(
-                    [
-                        jnp.concatenate([p[0] * npow, p[1] * npow], axis=1)
-                        for p in pix
-                    ],
-                    axis=0,
-                )
-                mode = precisions[min(r, len(precisions) - 1)]
-                if r == 0:
-                    prod = _polstack_dot(lhs, rha, rhb, rh, mode)
-                else:
-                    # cfold: the rank-r coefficient rides the RHS (see the
-                    # `cfold` docstring; identical assembly to the main loop)
-                    xre = phx_re * cr + phx_im * ci
-                    xim = phx_re * ci - phx_im * cr
-                    if mode == "default":
-                        rh_r = jnp.concatenate(
-                            [
-                                jnp.concatenate([xre, xim], axis=1),
-                                jnp.concatenate([-xim, xre], axis=1),
-                            ],
-                            axis=0,
-                        ).astype(jnp.bfloat16)
-                        prod = _polstack_dot(lhs, None, None, rh_r, mode)
-                    else:
-                        rhs_r = jnp.concatenate(
-                            [
-                                jnp.concatenate([xre, xim], axis=1),
-                                jnp.concatenate([-xim, xre], axis=1),
-                            ],
-                            axis=0,
-                        )
-                        rh_r = rhs_r.astype(jnp.bfloat16)
-                        rl_r = (rhs_r - rh_r.astype(jnp.float32)).astype(
-                            jnp.bfloat16)
-                        prod = _polstack_dot(
-                            lhs, jnp.concatenate([rh_r, rl_r], axis=0),
-                            jnp.concatenate([rl_r, rh_r], axis=0),
-                            rh_r, mode,
-                        )
-                prod_acc = prod if prod_acc is None else prod_acc + prod
-            return prod_acc
-
-        def _phase_b(b, sb, prod_acc):
-            phy_re = phyr_s[sb]
-            phy_im = phyi_s[sb]
-            d_re = prod_acc[:, 0:V]
-            d_im = prod_acc[:, V:2 * V]
-            rows_re = []
-            rows_im = []
-            for p in range(P_POLS):
-                dr = d_re[p * N:(p + 1) * N]
-                di = d_im[p * N:(p + 1) * N]
-                sr = dr * phy_re + di * phy_im
-                si = di * phy_re - dr * phy_im
-                rows_re.append(jnp.sum(sr, axis=0, keepdims=True))
-                rows_im.append(jnp.sum(si, axis=0, keepdims=True))
-            out_re_ref[b] = jnp.concatenate(rows_re, axis=0)
-            out_im_ref[b] = jnp.concatenate(rows_im, axis=0)
-
-        prev = None
-        for b in range(batch):
-            pa = _phase_a(b, b % 2)
-            if prev is not None:
-                _phase_b(*prev)
-            prev = (b, b % 2, pa)
-        _phase_b(*prev)
-        return
-
-    for b in range(batch):
-        sb = (b % 2) if dbuf else 0     # scratch buffer slot (see `dbuf`)
-        sub = _sub_tiles(b)
-        a1 = [(at_refs[4 * b + 0][0, 0, p], at_refs[4 * b + 1][0, 0, p])
-              for p in range(P_POLS)]
-        a2 = [(at_refs[4 * b + 2][0, 0, p], at_refs[4 * b + 3][0, 0, p])
-              for p in range(P_POLS)]
-        pix = _prologue(sub, sph, a1, a2)
-
-        uvw = uvwr_ref[b]
-        u_row = uvw[0:1, :]
-        v_row = uvw[1:2, :]
-        py = poyc_ref[b] - m_col * (v_row * k0)
-        px = poxc_ref[b] - m_col * (u_row * k0)
-        dpy = -(m_col * (v_row * dk))
-        dpx = -(m_col * (u_row * dk))
-        cy_re, cy_im = jnp.cos(py), jnp.sin(py)
-        cx_re, cx_im = jnp.cos(px), jnp.sin(px)
-        dy_re, dy_im = jnp.cos(dpy), jnp.sin(dpy)
-        dx_re, dx_im = jnp.cos(dpx), jnp.sin(dpx)
-        for c in range(C):
-            if c and c % 16 == 0:
-                # periodic exact resync bounds recurrence drift (engages for
-                # C > 16; matches the gridder kernels, gridder.py:642)
-                kc = k0 + c * dk
-                pyc = poyc_ref[b] - m_col * (v_row * kc)
-                pxc = poxc_ref[b] - m_col * (u_row * kc)
-                cy_re, cy_im = jnp.cos(pyc), jnp.sin(pyc)
-                cx_re, cx_im = jnp.cos(pxc), jnp.sin(pxc)
-            lo = c * T
-            phyr_s[sb, :, lo:lo + T] = cy_re
-            phyi_s[sb, :, lo:lo + T] = cy_im
-            if sstore:
-                rhs_s[sb, 0:N, lo:lo + T] = cx_re
-                rhs_s[sb, 0:N, V + lo:V + lo + T] = -cx_im
-                rhs_s[sb, N:2 * N, lo:lo + T] = cx_im
-                rhs_s[sb, N:2 * N, V + lo:V + lo + T] = cx_re
-            else:
-                phxr_s[sb, :, lo:lo + T] = cx_re
-                phxi_s[sb, :, lo:lo + T] = cx_im
-            if c + 1 < C and ablate != "no_recur":
-                cy_re, cy_im = kcmul(cy_re, cy_im, dy_re, dy_im)
-                cx_re, cx_im = kcmul(cx_re, cx_im, dx_re, dx_im)
-        phy_re = phyr_s[sb]
-        phy_im = phyi_s[sb]
-        if sstore:
-            phx_re = rhs_s[sb, 0:N, 0:V]
-            phx_im = rhs_s[sb, N:2 * N, 0:V]
-        else:
-            phx_re = phxr_s[sb]
-            phx_im = phxi_s[sb]
-
-        if qsplit:
-            xh_re = phx_re.astype(jnp.bfloat16)
-            xh_im = phx_im.astype(jnp.bfloat16)
-            xl_re = (phx_re - xh_re.astype(jnp.float32)).astype(jnp.bfloat16)
-            xl_im = (phx_im - xh_im.astype(jnp.float32)).astype(jnp.bfloat16)
-            rha = jnp.concatenate(
-                [
-                    jnp.concatenate([xh_re, -xh_im], axis=1),
-                    jnp.concatenate([xh_im, xh_re], axis=1),
-                    jnp.concatenate([xl_re, -xl_im], axis=1),
-                    jnp.concatenate([xl_im, xl_re], axis=1),
-                ],
-                axis=0,
-            )                                        # [4N, 2V] = [rh; rl]
-
-            def dot0(lhs_, mode_):
-                return _polstack_dot_q(lhs_, rha, mode_)
-        else:
-            if sstore:
-                rhs = rhs_s[sb]
-            else:
-                rhs = jnp.concatenate(
-                    [
-                        jnp.concatenate([phx_re, -phx_im], axis=1),
-                        jnp.concatenate([phx_im, phx_re], axis=1),
-                    ],
-                    axis=0,
-                )
-            rh = rhs.astype(jnp.bfloat16)
-            rl = (rhs - rh.astype(jnp.float32)).astype(jnp.bfloat16)
-            rha = jnp.concatenate([rh, rl], axis=0)
-            if hswap:
-                def dot0(lhs_, mode_):
-                    return _polstack_dot_q(lhs_, rha, mode_)
-            else:
-                rhb = jnp.concatenate([rl, rh], axis=0)
-
-                def dot0(lhs_, mode_):
-                    return _polstack_dot(lhs_, rha, rhb, rh, mode_)
-        mu = mur_ref[b]
-        rows_re = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-        rows_im = [jnp.zeros((1, V), jnp.float32) for _ in range(P_POLS)]
-        cr = jnp.ones_like(mu)
-        ci = jnp.zeros_like(mu)
-        npow = jnp.ones_like(n_yx)
-        prod_acc = None
-        for r in range(w_rank):
-            if r:
-                cr, ci = ci * mu / r, -cr * mu / r
-                npow = npow * n_yx
-            lhs = jnp.concatenate(
-                [
-                    jnp.concatenate([p[0] * npow, p[1] * npow], axis=1)
-                    for p in pix
-                ],
-                axis=0,
-            )
-            mode = precisions[min(r, len(precisions) - 1)]
-            if ablate == "no_dot":
-                prod = rha.astype(jnp.float32) + lhs[0:1, 0:1]
-            elif cfold and r:
-                # fold c_r into the RHS: X' = conj(Φx)·c_r, column scale
-                # (general complex packing [[X're, X'im], [−X'im, X're]])
-                xre = phx_re * cr + phx_im * ci
-                xim = phx_re * ci - phx_im * cr
-                if mode == "default":
-                    rh_r = jnp.concatenate(
-                        [
-                            jnp.concatenate([xre, xim], axis=1),
-                            jnp.concatenate([-xim, xre], axis=1),
-                        ],
-                        axis=0,
-                    ).astype(jnp.bfloat16)
-                    prod = _polstack_dot(lhs, None, None, rh_r, mode)
-                elif qsplit:
-                    qh_re = xre.astype(jnp.bfloat16)
-                    qh_im = xim.astype(jnp.bfloat16)
-                    ql_re = (xre - qh_re.astype(jnp.float32)).astype(jnp.bfloat16)
-                    ql_im = (xim - qh_im.astype(jnp.float32)).astype(jnp.bfloat16)
-                    rha_r = jnp.concatenate(
-                        [
-                            jnp.concatenate([qh_re, qh_im], axis=1),
-                            jnp.concatenate([-qh_im, qh_re], axis=1),
-                            jnp.concatenate([ql_re, ql_im], axis=1),
-                            jnp.concatenate([-ql_im, ql_re], axis=1),
-                        ],
-                        axis=0,
-                    )
-                    prod = _polstack_dot_q(lhs, rha_r, mode)
-                else:
-                    rhs_r = jnp.concatenate(
-                        [
-                            jnp.concatenate([xre, xim], axis=1),
-                            jnp.concatenate([-xim, xre], axis=1),
-                        ],
-                        axis=0,
-                    )
-                    rh_r = rhs_r.astype(jnp.bfloat16)
-                    rl_r = (rhs_r - rh_r.astype(jnp.float32)).astype(jnp.bfloat16)
-                    rha_r = jnp.concatenate([rh_r, rl_r], axis=0)
-                    if hswap:
-                        prod = _polstack_dot_q(lhs, rha_r, mode)
-                    else:
-                        prod = _polstack_dot(
-                            lhs, rha_r,
-                            jnp.concatenate([rl_r, rh_r], axis=0),
-                            rh_r, mode,
-                        )
-            else:
-                prod = dot0(lhs, mode)
-            if cfold:
-                prod_acc = prod if prod_acc is None else prod_acc + prod
-                continue
-            # stage 2 per pol (see _kernel_polstack)
-            d_re = prod[:, 0:V]
-            d_im = prod[:, V:2 * V]
-            for p in range(P_POLS):
-                if ablate == "no_stage2":
-                    rows_re[p] = rows_re[p] + d_re[p * N:p * N + 1]
-                    rows_im[p] = rows_im[p] + d_im[p * N:p * N + 1]
-                    continue
-                dr = d_re[p * N:(p + 1) * N]
-                di = d_im[p * N:(p + 1) * N]
-                sr = dr * phy_re + di * phy_im
-                si = di * phy_re - dr * phy_im
-                vr = jnp.sum(sr, axis=0, keepdims=True)
-                vi = jnp.sum(si, axis=0, keepdims=True)
-                er, ei = kcmul(vr, vi, cr, ci)
-                rows_re[p] = rows_re[p] + er
-                rows_im[p] = rows_im[p] + ei
-        if cfold:
-            # single Φy* contraction per pol over the rank-accumulated dots
-            d_re = prod_acc[:, 0:V]
-            d_im = prod_acc[:, V:2 * V]
-            for p in range(P_POLS):
-                dr = d_re[p * N:(p + 1) * N]
-                di = d_im[p * N:(p + 1) * N]
-                sr = dr * phy_re + di * phy_im
-                si = di * phy_re - dr * phy_im
-                rows_re[p] = jnp.sum(sr, axis=0, keepdims=True)
-                rows_im[p] = jnp.sum(si, axis=0, keepdims=True)
-        out_re_ref[b] = jnp.concatenate(rows_re, axis=0)
-        out_im_ref[b] = jnp.concatenate(rows_im, axis=0)
-
-
-def _degridder_polstack_batch_run(params, stg, subgrids, w_rank, precisions,
-                                  interpret, batch: int = 4, ablate: str = "",
-                                  cfold: bool = False, qsplit: bool = False,
-                                  hswap: bool = False, sstore: bool = False,
-                                  dbuf: bool = False, swpipe: bool = False,
-                                  kmerge: int = 0, raw: bool = False,
-                                  fuse_oyx=None):
-    import dataclasses as _dc
-
-    if kmerge:
-        swpipe = True       # kmerge lives on the pipelined phase-A path
-    if swpipe and (ablate not in ("", "fuse_raw") or qsplit or hswap
-                   or sstore or not (cfold or w_rank == 1)):
-        swpipe = False      # the pipelined schedule covers the shipping path
-        kmerge = 0
-    if swpipe:
-        dbuf = True         # phase B(b) reads slot b%2 after A(b+1) wrote ~b%2
-
-    from .common import _PER_SUBGRID_FIELDS
-
-    S = stg.uvw.shape[0]
-    T, C, N = params.nr_timesteps_subgrid, params.nr_channels, params.subgrid_size
-    V = T * C
-    B = batch
-    s_pad = -(-S // B) * B
-    if s_pad != S:
-        pad = s_pad - S
-        updates = {
-            name: jnp.pad(
-                getattr(stg, name),
-                [(0, pad)] + [(0, 0)] * (getattr(stg, name).ndim - 1),
-            )
-            for name in _PER_SUBGRID_FIELDS
-            if getattr(stg, name) is not None
-        }
-        stg = _dc.replace(stg, **updates)
-        subgrids = tuple(
-            jnp.pad(s, [(0, pad)] + [(0, 0)] * (s.ndim - 1)) for s in subgrids
-        )
-    if interpret is None:
-        interpret = use_interpret()
-    fuse = fuse_oyx is not None
-    # [S, N, N·P] row-form subgrids/pieces (detected from the operand
-    # rank): the fused prologue's zero-copy pipeline boundary
-    # (grid_to_subgrids_ranges(pieces="rows")), and the staged
-    # benchmark's input layout — the 4-D form's 32-lane trailing dim is
-    # physically lane-padded 4× under T(8,128), so reading it costs 4×
-    # the subgrid HBM bytes
-    rows_in = subgrids[0].ndim == 3
-    kernel = functools.partial(
-        _kernel_polstack_batch, V=V, N=N, T=T, C=C, w_rank=w_rank,
-        precisions=precisions, batch=B, ablate=ablate, cfold=cfold,
-        qsplit=qsplit, hswap=hswap, sstore=sstore, dbuf=dbuf, swpipe=swpipe,
-        kmerge=kmerge, fuse=fuse, rows_in=rows_in,
-    )
-
-    def at_spec(sel, b):
-        return pl.BlockSpec(
-            (1, 1, P_POLS, N, N),
-            lambda i, aidx, st1, st2, sel=sel, b=b: (
-                aidx[i * B + b], (st1 if sel == 1 else st2)[i * B + b], 0, 0, 0
-            ),
-            memory_space=pltpu.VMEM,
-        )
-
-    at_specs = []
-    at_inputs = []
-    for b in range(B):
-        at_specs += [at_spec(1, b), at_spec(1, b), at_spec(2, b), at_spec(2, b)]
-        at_inputs += [stg.at_re, stg.at_im, stg.at_re, stg.at_im]
-
-    from .gridder import _fuse_io
-
-    fuse_specs, fuse_inputs = _fuse_io(fuse, fuse_oyx, s_pad, B, N,
-                                       inverse=False)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(s_pad // B,),
-        in_specs=[
-            pl.BlockSpec((B, 3, T), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, 1, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, C), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, N, 1), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, 1), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, N), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ] + ([
-            pl.BlockSpec((B, N, N * P_POLS), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, N, N * P_POLS), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-        ] if rows_in else [
-            pl.BlockSpec((B, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, P_POLS, N, N), lambda i, *_: (i, 0, 0, 0), memory_space=pltpu.VMEM),
-        ]) + [
-            pl.BlockSpec((N, N), lambda i, *_: (0, 0), memory_space=pltpu.VMEM),
-        ] + at_specs + fuse_specs,
-        out_specs=(
-            pl.BlockSpec((B, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, P_POLS, V), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((2 if dbuf else 1, N, V), jnp.float32)] * 2
-            + ([pltpu.VMEM((2 if dbuf else 1, 2 * N, 2 * V), jnp.float32)]
-               if sstore
-               else [pltpu.VMEM((2 if dbuf else 1, N, V), jnp.float32)] * 2)
-            + ([pltpu.VMEM((B, N, N * P_POLS), jnp.float32)] * 2
-               if fuse else [])
-        ),
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((s_pad, P_POLS, V), jnp.float32),
-        jax.ShapeDtypeStruct((s_pad, P_POLS, V), jnp.float32),
-    )
-    re, im = pl.pallas_call(
-        kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-    )(
-        stg.aterm_index, stg.station1, stg.station2,
-        stg.uvw_rows, stg.mu_row_cm, stg.wavenumbers,
-        stg.po_x_col, stg.po_y_col, stg.mcol, stg.n_yx,
-        subgrids[0], subgrids[1], stg.sph,
-        *at_inputs, *fuse_inputs,
-    )
-    if raw:
-        # c-major [S, P, V] rows, untransposed: shard_map bodies
-        # materialize the [S, T, C, P] form with a default (8,128)-tiled
-        # layout whose (16, 4) minors pad 32× (25.7 GB at fullsize) —
-        # the mesh wrappers transpose OUTSIDE the body instead
-        return re[:S], im[:S]
-    re = jnp.transpose(re[:S].reshape(S, P_POLS, C, T), (0, 3, 2, 1))
-    im = jnp.transpose(im[:S].reshape(S, P_POLS, C, T), (0, 3, 2, 1))
-    return re, im
-
-
-@register(
-    "degridder", "pallas_v7",
-    "v6 + 8-subgrid steps + all ranks' 3-product splits K-merged into ONE "
-    "MXU dot (one Φy* contraction per pol)",
-    family="pallas", uniform_channels=True, fallback="pallas_v4",
-)
-def degridder_pallas_v7(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, w_rank: int = 2,
-                        canonical=False, batch: int = 8, cfold: bool = True,
-                        swpipe: bool = False, kmerge: int = 3):
-    # batch=8 + cfold won the round-3 hardware A/B (res/ probe: 3.10 vs
-    # 3.15 (b4) vs 3.66 (b16) µs/subgrid; non-cfold round-2 was 3.7).
-    return _chunked(
-        _degridder_polstack_batch_run, params,
-        stage(params, sobs, canonical), subgrids,
-        w_rank, degridder_precisions(w_rank), interpret, batch, "", cfold,
-        swpipe=swpipe, kmerge=kmerge,
-    )
-
-
-def degridder_pallas_v7_staged(params, stg, subgrids, interpret=None,
-                               w_rank: int = 2, batch: int = 8,
-                               cfold: bool = True, qsplit: bool = False,
-                               hswap: bool = False, sstore: bool = False,
-                               dbuf: bool = False, swpipe: bool = False,
-                               kmerge: int = 3, raw: bool = False,
-                               fuse_oyx=None):
-    """With `fuse_oyx` ([S, 2] roll offsets), `subgrids` are the range
-    extraction's block-rolled PIECES and the kernel runs the fused
-    forward-DFT prologue (see _kernel_polstack_batch `fuse`); cites the
-    reference's degridder ladder top (app/CUDA/kernels/degridder_v6.cu)
-    for the non-fused baseline semantics."""
-    return _chunked(
-        _degridder_polstack_batch_run, params, stg, subgrids,
-        w_rank, degridder_precisions(w_rank), interpret, batch, "", cfold,
-        qsplit, hswap, sstore, dbuf, swpipe, kmerge, raw,
-        fuse_oyx=fuse_oyx,
-    )
-
-
-@register(
-    "degridder", "pallas_v8",
-    "w-free specialization: rank-1 (drops the w-term correction; exact for w==0 data)",
-    family="pallas", uniform_channels=True, fallback="pallas_v4",
-    fixed_w_rank=1,
-)
-def degridder_pallas_v8(params: IDGParams, sobs: SplitObservation,
-                        subgrids: Pair, interpret=None, canonical=False,
-                        batch: int = 8, swpipe: bool = False, kmerge: int = 3):
-    """v7 with the w·n Taylor correction dropped (w_rank=1): exact for
-    w ≡ 0 observations (all in-tree generators); the general-w kernels are
-    v3–v7. See gridder pallas_v7 for the rationale. batch=8 per the
-    round-3 hardware A/B (2.29 µs/subgrid vs 2.6 at b4)."""
-    return _chunked(
-        _degridder_polstack_batch_run, params,
-        stage(params, sobs, canonical), subgrids,
-        1, ("3x2k",), interpret, batch, swpipe=swpipe, kmerge=kmerge,
-    )
-
-
-def degridder_pallas_v8_staged(params, stg, subgrids, interpret=None,
-                               batch: int = 8, w_rank: int = 1,
-                               qsplit: bool = False, hswap: bool = False,
-                               sstore: bool = False, dbuf: bool = False,
-                               swpipe: bool = False, kmerge: int = 3,
-                               raw: bool = False, fuse_oyx=None):
-    return _chunked(
-        _degridder_polstack_batch_run, params, stg, subgrids,
-        w_rank, ("3x2k",), interpret, batch, qsplit=qsplit, hswap=hswap,
-        sstore=sstore, dbuf=dbuf, swpipe=swpipe, kmerge=kmerge, raw=raw,
-        fuse_oyx=fuse_oyx,
-    )

@@ -1,8 +1,8 @@
 """Kernel registry: (workload, version) → callable.
 
-The TPU analogue of the reference's one-executable-per-kernel scheme
+The analogue of the reference's one-executable-per-kernel scheme
 (tests/CMakeLists.txt:4-38): every kernel variant registers under a workload
-("gridder"/"degridder") and a version string ("xla_v1", "pallas_v3", ...),
+("gridder"/"degridder") and a version string ("xla_v1", "pallas_triton", ...),
 with a one-line description of its optimization delta (the ladder).
 
 Kernel contract (replaces the 13-arg launch ABI, app/CUDA/util.cpp:233-237):
@@ -27,7 +27,7 @@ class KernelEntry:
     version: str
     fn: Callable
     description: str
-    family: str  # "xla" | "pallas" | "cpu"
+    family: str  # "xla" | "pallas"
     # Channel-recurrence kernels (the reference v8 trick, gridder_v8.cu:
     # 135-186) advance the phasor by a single per-channel delta and are only
     # correct when the wavenumber spacing is uniform. `uniform_channels`
@@ -35,15 +35,10 @@ class KernelEntry:
     # used by the API guard (ops/api.py) on non-uniform inputs.
     uniform_channels: bool = False
     fallback: str | None = None
-    # Fixed built-in Taylor rank for the w-free specializations (rank 1,
-    # exact only for w ≡ 0 data); None for exact direct kernels and for
-    # kernels exposing a tunable w_rank parameter.
-    fixed_w_rank: int | None = None
 
 
 def register(workload: str, version: str, description: str = "", family: str = "",
-             uniform_channels: bool = False, fallback: str | None = None,
-             fixed_w_rank: int | None = None):
+             uniform_channels: bool = False, fallback: str | None = None):
     assert workload in WORKLOADS, workload
 
     def deco(fn):
@@ -52,7 +47,7 @@ def register(workload: str, version: str, description: str = "", family: str = "
         fam = family or version.split("_")[0]
         _REGISTRY[key] = KernelEntry(
             workload, version, fn, description, fam, uniform_channels,
-            fallback, fixed_w_rank,
+            fallback,
         )
         return fn
 

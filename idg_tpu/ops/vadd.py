@@ -1,9 +1,11 @@
-"""vadd: memory-bandwidth smoke benchmark.
+"""vadd: the copy-bandwidth reference benchmark.
 
 The reference declares a vadd benchmark (app/lib-cpu.hpp:6-7, README.md:65)
 and commits V100 results (res/vadd/*.csv) but ships no kernel source —
 SURVEY.md §2.4 recommends reviving it as a cheap bandwidth validator for the
-harness. z = x + y over N floats; bytes moved = 3·4·N.
+harness: what XLA's copy reaches on the card is the bandwidth a
+memory-bound kernel can be held to. z = x + y over N floats; bytes moved =
+3·4·N.
 """
 
 from __future__ import annotations
@@ -17,30 +19,6 @@ DEFAULT_N = 256 * 1024 * 1024  # 1 GiB per operand, matches V100 CSV scale
 @jax.jit
 def vadd(x, y):
     return x + y
-
-
-def vadd_pallas(x, y, interpret: bool = False):
-    """Pallas variant: 1-D grid of VMEM tiles (trivially bandwidth-bound;
-    exists to validate the Pallas path on a memory-bound op)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    tile = 512 * 1024
-    n = x.shape[0]
-    assert n % tile == 0, f"vadd_pallas needs size divisible by {tile}"
-
-    def kernel(x_ref, y_ref, o_ref):
-        o_ref[:] = x_ref[:] + y_ref[:]
-
-    spec = pl.BlockSpec((tile,), lambda i: (i,), memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n,), x.dtype),
-        grid=(n // tile,),
-        in_specs=[spec, spec],
-        out_specs=spec,
-        interpret=interpret,
-    )(x, y)
 
 
 def make_vadd_inputs(n: int = DEFAULT_N):

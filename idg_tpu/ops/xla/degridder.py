@@ -5,7 +5,7 @@ Mirrors the gridder family; the degridder is the adjoint direction
 
   xla_reference — one subgrid at a time, full phase materialization.
   xla_v1        — subgrid-batched.
-  xla_v2        — sum-over-pixels as [T·C, N²] × [N², P] real matrix products (MXU).
+  xla_v2        — sum-over-pixels as [T·C, N²] × [N², P] real matrix products.
   xla_v3        — channel-recurrence phasor (assumes uniform channel spacing).
 
 Degridder phase sign: phase = phase_index·k − phase_offset
@@ -118,7 +118,7 @@ def degridder_xla_v1(
 @register(
     "degridder",
     "xla_v2",
-    "pixel sum as [TC,N²]×[N²,P] real matrix products on the MXU",
+    "pixel sum as [TC,N²]×[N²,P] real matrix products",
     family="xla",
 )
 def degridder_xla_v2(

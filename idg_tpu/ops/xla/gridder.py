@@ -10,8 +10,8 @@ reference documents its ladder app/CUDA/kernels/gridder_v*.cu):
   xla_v1        — subgrid-batched (vmap via lax.map batch_size): vectorizes
                   the whole subgrid batch (≈ v1's thread-parallel pixels).
   xla_v2        — MAC restructured as [N², T·C] × [T·C, P] real matrix
-                  products so the accumulation maps onto the MXU (≈ v3's
-                  register FMA restructuring, but TPU-shaped).
+                  products so the accumulation is a dense dot (≈ v3's
+                  register FMA restructuring).
   xla_v3        — channel-recurrence phasor: sincos only at channel 0 plus a
                   per-(pixel,time) delta; channels advance by one complex
                   multiply (gridder_v8.cu:135-186 idea), assuming uniform
@@ -87,7 +87,7 @@ def _body_full_phase(uvw_s, vis_s, po_s, k, l, m, n) -> Pair:
 
 
 def _body_mxu(uvw_s, vis_s, po_s, k, l, m, n) -> Pair:
-    """MAC as [N², T·C] × [T·C, P] real matrix products (MXU)."""
+    """MAC as [N², T·C] × [T·C, P] real matrix products."""
     N = po_s.shape[-1]
     P = vis_s[0].shape[-1]
     phasor = _phasor(uvw_s, po_s, k, l, m, n)
@@ -143,7 +143,7 @@ def gridder_xla_v1(params: IDGParams, sobs: SplitObservation, batch_size: int = 
 @register(
     "gridder",
     "xla_v2",
-    "MAC as [N²,TC]×[TC,P] real matrix products on the MXU",
+    "MAC as [N²,TC]×[TC,P] real matrix products",
     family="xla",
 )
 def gridder_xla_v2(params: IDGParams, sobs: SplitObservation, batch_size: int = 16):

@@ -1,9 +1,9 @@
-"""Separable-phasor MXU kernels (xla_v4) — the TPU-first reformulation.
+"""Separable-phasor kernels (xla_v4) — the math restructured for dots.
 
 The reference's ladder tops out at a phasor *recurrence* (gridder_v8.cu:
 135-186): sincos twice per (pixel, time), a complex multiply per channel —
-still O(V·N²) VPU work for V = T·C effective visibilities. The TPU ceiling
-demands the MXU, so this family restructures the math itself:
+still O(V·N²) elementwise work for V = T·C effective visibilities. This
+family restructures the math so the work becomes dense dots:
 
   phase[v, y, x] = po_x[x] + po_y[y] + μ_v·n[y,x] − u'_v·l[x] − v'_v·m[y]
 
@@ -20,14 +20,15 @@ phasor a sum of w_rank separable terms. The gridder MAC then factors as
 
   pixels[x, y, p] = Σ_r n^r[y,x] ⊙ ( Φxᵀ[x, v] @ (Φy[v,y] ⊛ ṽ_r[v,p]) )
 
-— a dense [N, V] × [V, N·P] matmul per rank (MXU) plus O(V·N) sincos (VPU)
+— a dense [N, V] × [V, N·P] matmul per rank plus O(V·N) sincos
 instead of O(V·N²) sincos. The degridder is the exact adjoint: a
 [V, N] × [N, N·P] matmul per rank then an O(V·N·P) contraction with Φx*.
 
 Error budget: rank-r truncation error ≤ |μn|^r / r!; at the reference's
-w = 0 data every rank is exact, and rank 2 (default) holds the general
-small-w case to ≲1e-6, well inside the 1e-5 comparator gate
-(tests/test_util.hpp:84).
+w = 0 data every rank is exact, so the default is rank 1, and the API guard
+(ops/api.py) raises the rank until the bound is inside W_TAYLOR_TOL (rank 2
+holds the general small-w case to ≲1e-6, well inside the 1e-5 comparator
+gate, tests/test_util.hpp:84).
 """
 
 from __future__ import annotations
@@ -49,7 +50,9 @@ from ..common import (
 from ..complexpair import Pair, cexp_i, cmatmul
 from ..registry import register
 
-DEFAULT_W_RANK = 2
+# Exact for w ≡ 0; the API guard raises it for the observation's w range —
+# the same default as the Pallas kernels, so the two run the same rank.
+DEFAULT_W_RANK = 1
 
 
 def _rank_coefficients(mu, w_rank: int):
@@ -131,7 +134,7 @@ def _degridder_subgrid(uvw_s, pixels, po_x, po_y, w_off, k, l, m, n,
         # R[v, x·p] = Σ_y conj(Φy)[v,y] · (n^r ⊙ pixels)[y, x·p]
         rr = cmatmul(phiy_conj, p_r, precision=precision)   # [V, N(x)·P]
         rr = tuple(x.reshape(-1, N, P) for x in rr)         # [V, x, p]
-        # vis_r[v, p] = Σ_x conj(Φx)[v,x] · R[v,x,p]   (VPU contraction)
+        # vis_r[v, p] = Σ_x conj(Φx)[v,x] · R[v,x,p]   (elementwise contraction)
         vr_re = jnp.sum(phix[0][:, :, None] * rr[0] + phix[1][:, :, None] * rr[1], axis=1)
         vr_im = jnp.sum(phix[0][:, :, None] * rr[1] - phix[1][:, :, None] * rr[0], axis=1)
         vis_re = vis_re + vr_re * cr_c[:, None] - vr_im * ci_c[:, None]
@@ -142,7 +145,7 @@ def _degridder_subgrid(uvw_s, pixels, po_x, po_y, w_off, k, l, m, n,
 @register(
     "gridder",
     "xla_v4",
-    "separable phasor Φx·Φy + rank-w Taylor: [N,V]×[V,N·P] MXU matmuls, O(V·N) sincos",
+    "separable phasor Φx·Φy + rank-w Taylor: [N,V]×[V,N·P] matmuls, O(V·N) sincos",
     family="xla",
 )
 def gridder_xla_v4(
@@ -186,7 +189,7 @@ def gridder_xla_v4(
 @register(
     "degridder",
     "xla_v4",
-    "separable phasor adjoint: [V,N]×[N,N·P] MXU matmuls, O(V·N) sincos",
+    "separable phasor adjoint: [V,N]×[N,N·P] matmuls, O(V·N) sincos",
     family="xla",
 )
 def degridder_xla_v4(

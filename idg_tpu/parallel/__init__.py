@@ -1,10 +1,10 @@
-"""Multi-chip distribution layer (new capability vs the reference).
+"""Multi-card distribution layer (new capability vs the reference).
 
 The reference is single-GPU (device 0 hardcoded, app/CUDA/util.cpp:19); its
-only parallelism is one thread-block per subgrid. On TPU the equivalent axis
-— the subgrid batch — shards over a `jax.sharding.Mesh` via `shard_map`, and
-the master-grid accumulation becomes an XLA collective (`psum` /
-`reduce_scatter`) over ICI.
+only parallelism is one thread-block per subgrid. Here the subgrid batch
+shards over a `jax.sharding.Mesh` via `shard_map`, and the master-grid
+accumulation becomes a collective (`psum` / `psum_scatter`) that XLA hands
+to NCCL.
 """
 
 from .distributed import (

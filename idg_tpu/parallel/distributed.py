@@ -1,18 +1,17 @@
-"""Multi-host distribution: jax.distributed init + hierarchical ICI→DCN
-meshes (the north-star scaling layer, SURVEY.md §2.7 / BASELINE.md:36-40;
-the reference is single-GPU and has no equivalent).
+"""Multi-process distribution: jax.distributed init, the (host × device)
+mesh for runs across hosts, and process-local sharding of a global
+observation (the north-star scaling layer, SURVEY.md §2.7 /
+BASELINE.md:36-40; the reference is single-GPU and has no equivalent).
 
-Topology model: processes (hosts) × local chips. Within a host, chips talk
-over ICI; across hosts, over DCN. The hierarchical mesh makes that explicit:
+One process drives every card of one host on a flat 1-D mesh
+(mesh.make_mesh). Only a run across hosts (jax.process_count() > 1) needs
+the 2-D mesh, whose axes follow the process boundary:
 
-    mesh = make_hier_mesh()            # axes ("host", "chip")
+    mesh = make_hier_mesh()            # axes ("host", "device")
 
-so collectives can be staged inner-to-outer — each host psums its local
-partial grid over ICI first, then one pre-reduced grid per host crosses DCN
-(`hierarchical_psum`). XLA lowers single flat psums the same way on real TPU
-topologies, but the explicit form documents the design, matches the
-multi-process CPU test environment (Gloo), and lets the DCN stage be
-measured separately.
+so the grid reduction can be staged inner-to-outer — each host psums its
+local partial grid first, then one pre-reduced grid per host crosses the
+network (`hierarchical_psum`).
 
 Multi-process usage (one process per host):
 
@@ -49,9 +48,10 @@ def init_distributed(
 ) -> None:
     """jax.distributed.initialize with env-var fallbacks.
 
-    Env: JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID (also
-    auto-detected on managed platforms — Cloud TPU pods need no arguments).
-    Safe to call once per process, before any other JAX API touches devices.
+    Env: JAX_COORDINATOR_ADDRESS (e.g. localhost:<port>), JAX_NUM_PROCESSES,
+    JAX_PROCESS_ID. Nothing tells JAX of a cluster on its own, so all three
+    are needed. Call once per process, before any other JAX API touches
+    devices.
     """
     kwargs = {}
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
@@ -69,18 +69,18 @@ def init_distributed(
 
 
 def make_hier_mesh(
-    chips_per_host: int | None = None,
-    axis_names: tuple[str, str] = ("host", "chip"),
+    devices_per_host: int | None = None,
+    axis_names: tuple[str, str] = ("host", "device"),
 ) -> Mesh:
-    """2-D (host × chip) mesh over all global devices.
-
-    Defaults to the process-local device count per host — the physical
-    ICI/DCN boundary. Works single-process too (1 × n_devices)."""
+    """2-D (host × device) mesh over all global devices, for runs across
+    hosts. Defaults to the process-local device count per host — the
+    boundary between the links inside a host and the network between
+    hosts. Works single-process too (1 × n_devices)."""
     devices = np.asarray(jax.devices())
-    if chips_per_host is None:
-        chips_per_host = jax.local_device_count()
-    assert devices.size % chips_per_host == 0, (devices.size, chips_per_host)
-    return Mesh(devices.reshape(-1, chips_per_host), axis_names)
+    if devices_per_host is None:
+        devices_per_host = jax.local_device_count()
+    assert devices.size % devices_per_host == 0, (devices.size, devices_per_host)
+    return Mesh(devices.reshape(-1, devices_per_host), axis_names)
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -98,7 +98,8 @@ def flat_axis_index(axes: tuple[str, ...]):
 
 
 def hierarchical_psum(x, mesh: Mesh):
-    """Stage the reduction inner-to-outer: ICI (last axis) first, then DCN.
+    """Stage the reduction inner-to-outer: within a host (last axis) first,
+    then across hosts.
 
     For a 1-D mesh this is a plain psum."""
     for name in reversed(mesh.axis_names):

@@ -11,9 +11,11 @@ from jax.sharding import Mesh
 def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
     """1-D mesh over the first `n_devices` devices (default: all).
 
-    The single mesh axis shards the subgrid batch — the TPU analogue of the
-    reference's grid of thread-blocks (`s = blockIdx.x`,
-    app/CUDA/kernels/gridder_reference.cu:14) lifted across chips.
+    The single mesh axis shards the subgrid batch — the reference's grid
+    of thread-blocks (`s = blockIdx.x`,
+    app/CUDA/kernels/gridder_reference.cu:14) lifted across cards. Every
+    card of a host reaches every other over NVLink at the same rate, so
+    one flat axis is the whole topology.
     """
     devices = jax.devices()
     if n_devices is not None:

@@ -5,13 +5,15 @@ reference maps it to `blockIdx.x`); here it shards over the mesh's "data"
 axis. Every per-subgrid array (uvw, visibilities, metadata, subgrids) splits
 on axis 0; wavenumbers/spheroidal/aterms replicate. The master-grid
 accumulation — absent from the reference — is a local scatter-add followed by
-an XLA `psum` over ICI (replicated grid) or `psum_scatter` (row-sharded grid).
+a `psum` (replicated grid) or `psum_scatter` (row-sharded grid), which XLA
+hands to NCCL on the cards.
 
 Guard contract: the builders here are benchmark internals and do NOT apply
 the ops.api._resolve correctness guards themselves (resolution needs the
 global host-side observation, which the builders never see). Callers that
 accept user-chosen versions (cli._perf_one --mesh, cli.cmd_scaling) resolve
 (version, w_rank) through ops.api._resolve first and pass the result down.
+`kernel_kw` passes kernel options (the CPU tests' interpret mode).
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import dataclasses
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
@@ -28,7 +29,6 @@ from jax.sharding import PartitionSpec as P
 from ..config import IDGParams
 from ..types import Metadata, SplitObservation
 from ..ops.grid import grid_to_subgrids, subgrids_to_grid
-from ..ops.registry import get_kernel
 from .distributed import flat_axis_index, hierarchical_psum
 from .mesh import pad_axis0, pad_to_multiple
 
@@ -114,91 +114,19 @@ def shard_observation(params: IDGParams, sobs: SplitObservation, mesh: Mesh):
     return _put_observation(padded, mesh), s_pad
 
 
-def shard_observation_block_sorted(params: IDGParams,
-                                   sobs: SplitObservation, mesh: Mesh):
-    """shard_observation + per-shard block-sort of the subgrid axis and
-    the per-shard range tables for the 'ranges' grid stage.
+def _kernel_fn(workload: str, version: str, w_rank: int | None,
+               kernel_kw: dict | None):
+    """Kernel fn with the resolved w_rank and kernel options bound."""
+    from ..ops.api import kernel_fn
 
-    Each shard's segment is independently sorted by destination grid
-    block (free host permutation; kernels are per-subgrid independent),
-    so every shard sees block-sorted local coords while segments stay
-    contiguous. Requires canonical time offsets (time_offset[s] == s·T,
-    the in-tree layout) — the permuted uvw/vis rows are re-labeled
-    canonically. Returns (sharded_sobs, s_pad, (tstarts, lens) sharded
-    [n_dev, 4, NBp] tables, mesh-global window w)."""
-
-    from ..ops.common import canonical_time_offsets
-    from ..ops.grid import block_sort_order, plan_grid_add_ranges
-
-    g, n = params.grid_size, params.subgrid_size
-    t = params.nr_timesteps_subgrid
-    padded, s_pad = _pad_observation(params, sobs, mesh.devices.size)
-    if not canonical_time_offsets(padded.metadata, t):
-        raise ValueError(
-            "shard_observation_block_sorted requires canonical time "
-            "offsets (time_offset[s] == s*T) to permute subgrids"
-        )
-    n_dev = mesh.devices.size
-    sl = s_pad // n_dev
-    md = padded.metadata
-    cx = np.asarray(md.coord_x)
-    cy = np.asarray(md.coord_y)
-    order = np.concatenate([
-        i * sl + block_sort_order(cx[i * sl:(i + 1) * sl],
-                                  cy[i * sl:(i + 1) * sl], g, n)
-        for i in range(n_dev)
-    ])
-
-    def perm(a):
-        return np.asarray(a)[order]
-
-    md_sorted = Metadata(
-        time_offset=(np.arange(s_pad, dtype=np.int64) * t).astype(
-            np.asarray(md.time_offset).dtype),
-        nr_timesteps=perm(md.nr_timesteps),
-        aterm_index=perm(md.aterm_index),
-        station1=perm(md.station1),
-        station2=perm(md.station2),
-        coord_x=perm(md.coord_x),
-        coord_y=perm(md.coord_y),
-        coord_z=perm(md.coord_z),
-    )
-    padded = dataclasses.replace(
-        padded, uvw=perm(padded.uvw), vis_re=perm(padded.vis_re),
-        vis_im=perm(padded.vis_im), metadata=md_sorted,
-    )
-    plans = [
-        plan_grid_add_ranges(
-            md_sorted.coord_x[i * sl:(i + 1) * sl],
-            md_sorted.coord_y[i * sl:(i + 1) * sl], g, n,
-        )
-        for i in range(n_dev)
-    ]
-    w = max(p.w for p in plans)
-    axis = tuple(mesh.axis_names)
-    table_sharding = NamedSharding(mesh, P(axis))
-    tstarts = jax.device_put(
-        np.stack([p.tstarts for p in plans]), table_sharding)
-    lens = jax.device_put(np.stack([p.lens for p in plans]), table_sharding)
-    return _put_observation(padded, mesh), s_pad, (tstarts, lens), w
-
-
-def _kernel_fn(workload: str, version: str, w_rank: int | None):
-    """Kernel fn with a resolved w_rank bound (when the kernel accepts it)."""
-    fn = get_kernel(workload, version).fn
-    if w_rank is not None:
-        from ..ops.api import _accepts
-
-        if _accepts(workload, version, "w_rank"):
-            fn = partial(fn, w_rank=w_rank)
-    return fn
+    return kernel_fn(workload, version, w_rank, **(kernel_kw or {}))
 
 
 def sharded_gridder(params: IDGParams, mesh: Mesh, version: str = "xla_v2",
-                    w_rank: int | None = None):
+                    w_rank: int | None = None, kernel_kw: dict | None = None):
     """jitted fn(sobs_sharded) -> (re, im) subgrids, sharded on axis 0."""
     axis = tuple(mesh.axis_names)
-    kernel = _kernel_fn("gridder", version, w_rank)
+    kernel = _kernel_fn("gridder", version, w_rank, kernel_kw)
     specs = _obs_specs(axis)
 
     @partial(
@@ -212,10 +140,10 @@ def sharded_gridder(params: IDGParams, mesh: Mesh, version: str = "xla_v2",
 
 
 def sharded_degridder(params: IDGParams, mesh: Mesh, version: str = "xla_v2",
-                      w_rank: int | None = None):
+                      w_rank: int | None = None, kernel_kw: dict | None = None):
     """jitted fn(sobs_sharded, sub_pair) -> (re, im) visibilities."""
     axis = tuple(mesh.axis_names)
-    kernel = _kernel_fn("degridder", version, w_rank)
+    kernel = _kernel_fn("degridder", version, w_rank, kernel_kw)
     specs = _obs_specs(axis)
 
     @partial(
@@ -229,188 +157,6 @@ def sharded_degridder(params: IDGParams, mesh: Mesh, version: str = "xla_v2",
     return jax.jit(local)
 
 
-def _staged_partition_specs(stg, axis):
-    """Staged-shaped pytree of PartitionSpecs: per-subgrid arrays sharded
-    on axis 0, shared planes (DFT rows, spheroidal, aterm banks,
-    wavenumbers) replicated. None fields stay None."""
-    from ..ops.pallas.common import _PER_SUBGRID_FIELDS
-
-    updates = {}
-    for f in dataclasses.fields(stg):
-        v = getattr(stg, f.name)
-        if v is None:
-            updates[f.name] = None
-        elif f.name in _PER_SUBGRID_FIELDS:
-            updates[f.name] = P(axis)
-        else:
-            updates[f.name] = P()
-    return dataclasses.replace(stg, **updates)
-
-
-def shard_staged_inputs(params: IDGParams, sobs: SplitObservation,
-                        mesh: Mesh, workload: str, version: str,
-                        subgrids=None):
-    """Stage once from the (padded) global observation, then reshard the
-    staged pytree across the mesh. Staging gathers run BEFORE sharding,
-    so no per-shard time-offset localization is needed — the sharded
-    arrays are plain row splits. Returns (staged_sharded,
-    subgrid_pair_sharded_or_None).
-
-    This is the mesh analogue of ops.api.staged_runner's input side: the
-    timed window on each shard contains only kernel launches, making
-    mesh-N rows directly comparable to the single-chip staged benchmarks
-    (the unstaged sharded_gridder path re-stages inside the timed jit —
-    ~9x the launch cost at the fullsize problem on hardware)."""
-    from ..ops.pallas import STAGED
-    from ..types import split_complex
-    from .distributed import distribute_subgrid_pair
-
-    stage_fn, _ = STAGED[(workload, version)]
-    padded, s_pad = _pad_observation(params, sobs, mesh.devices.size)
-    stg = jax.jit(
-        lambda p, s: stage_fn(p, s, with_vis=(workload == "gridder")),
-        static_argnums=0,
-    )(params, jax.device_put(padded))
-    axis = tuple(mesh.axis_names)
-    specs = _staged_partition_specs(stg, axis)
-    shardings = jax.tree.map(
-        lambda sp: NamedSharding(mesh, sp), specs,
-        is_leaf=lambda x: isinstance(x, P),
-    )
-    stg_sharded = jax.device_put(stg, shardings)
-    spair = None
-    if subgrids is not None:
-        spair = distribute_subgrid_pair(
-            split_complex(subgrids), mesh, s_pad)
-        from ..ops.pallas.degridder import ROWS_IN_VERSIONS
-
-        if workload == "degridder" and version in ROWS_IN_VERSIONS:
-            # rows form [S, N, N·P] (bit-identical input data; the
-            # polstack-batch kernels auto-detect it): the 4-D pair's
-            # (N, N) minors force a padded tiled jit-boundary layout and
-            # XLA inserts a ~6.4 ms/pass S-minor→row-major copy plus
-            # slow per-chunk slice fusions at fullsize (round-5 mesh-1
-            # trace); the rows form tiles exactly, so the boundary is
-            # clean. One-time conversion, outside the timed window.
-            n, pp = params.subgrid_size, params.nr_correlations
-            spair = jax.jit(lambda s_: tuple(
-                jnp.transpose(v, (0, 2, 1, 3)).reshape(
-                    v.shape[0], n, pp * n) for v in s_))(spair)
-            jax.block_until_ready(spair)
-    return stg_sharded, spair
-
-
-def _staged_run_fn(workload: str, version: str, w_rank, raw: bool = False):
-    import inspect
-
-    from ..ops.pallas import STAGED
-
-    _, run_fn = STAGED[(workload, version)]
-    sig = inspect.signature(run_fn).parameters
-    if w_rank is not None and "w_rank" in sig:
-        run_fn = partial(run_fn, w_rank=w_rank)
-    raw_ok = raw and "raw" in sig
-    if raw_ok:
-        run_fn = partial(run_fn, raw=True)
-    return run_fn, raw_ok
-
-
-def sharded_gridder_staged(params: IDGParams, mesh: Mesh, version: str,
-                           w_rank: int | None = None, slim: bool = False):
-    """jitted fn(staged_sharded) -> (re, im) subgrids sharded on axis 0,
-    timing-comparable to the single-chip staged benchmark (launch-only).
-
-    Bodies return 2-D [S_local, ·] (and the wrapper reshapes back):
-    shard_map boundary values get default TILED layouts on the two minor
-    dims, and [S,T,C,P] with minors (16, 4) pads (8,128)-tiles 32× — a
-    25.7 GB boundary copy at the fullsize degridder (compile-time OOM);
-    the gridder's (N, N) minors pad 4×. Flat rows tile exactly."""
-    run_fn, _ = _staged_run_fn("gridder", version, w_rank)
-    axis = tuple(mesh.axis_names)
-    p_pols, n = params.nr_correlations, params.subgrid_size
-
-    def fn(stg):
-        def body(st):
-            out = run_fn(params, st)
-            if slim:
-                # leading-axis slice INSIDE the body, on the raw kernel
-                # output (a single pallas_call — opaque, nothing to
-                # dead-code): the full results never cross the shard_map
-                # boundary, so no full-size tiled boundary layout is
-                # materialized per launch (see ops.api.staged_runner's
-                # _slim and the degridder's _slim_local)
-                out = tuple(v[:1] for v in out)
-            return tuple(v.reshape(v.shape[0], -1) for v in out)
-
-        local = jax.shard_map(
-            body,
-            mesh=mesh, in_specs=(_staged_partition_specs(stg, axis),),
-            out_specs=(P(axis), P(axis)), check_vma=False,
-        )
-        re, im = local(stg)
-        re = re.reshape(-1, p_pols, n, n)
-        im = im.reshape(-1, p_pols, n, n)
-        return re, im
-
-    return jax.jit(fn)
-
-
-def sharded_degridder_staged(params: IDGParams, mesh: Mesh, version: str,
-                             w_rank: int | None = None, slim: bool = False):
-    """jitted fn(staged_sharded, sub_pair) -> (re, im) visibilities.
-    2-D boundary values — see sharded_gridder_staged. Kernels exposing
-    `raw` skip their internal [S,P,V]→[S,T,C,P] transpose inside the body
-    (its tiled boundary copy pads 32×, a compile-time OOM at fullsize)
-    and transpose outside the shard_map instead."""
-    from ..ops.pallas.degridder import MAX_CHUNK
-
-    run_fn, raw = _staged_run_fn("degridder", version, w_rank, raw=True)
-    axis = tuple(mesh.axis_names)
-    t, c = params.nr_timesteps_subgrid, params.nr_channels
-    p_pols = params.nr_correlations
-
-    def _slim_local(v):
-        # one unit row per internal kernel chunk, sliced INSIDE the
-        # shard_map body so slice-of-concat folds into per-chunk slices:
-        # (a) a bare [:1] lets XLA dead-code all but the first _chunked
-        # launch (measured as an impossible 20.6 ms "pass"), (b) a
-        # strided [::1024] slice lowers as two full-array relayout
-        # copies (~44 ms/pass), and (c) slicing OUTSIDE the shard_map
-        # materializes the full per-shard output at the boundary with a
-        # padded tiled layout (~15 ms/pass) — per-chunk unit slices in
-        # the body keep every launch live for ~3 output rows, free.
-        idx = list(range(0, v.shape[0], MAX_CHUNK))
-        return jnp.concatenate([v[i:i + 1] for i in idx], axis=0)
-
-    def fn(stg, sub):
-        def body(st, su):
-            out = run_fn(params, st, su)
-            if slim:
-                out = tuple(_slim_local(v) for v in out)
-            return tuple(v.reshape(v.shape[0], -1) for v in out)
-
-        local = jax.shard_map(
-            body,
-            mesh=mesh,
-            in_specs=(_staged_partition_specs(stg, axis),
-                      (P(axis), P(axis))),
-            out_specs=(P(axis), P(axis)), check_vma=False,
-        )
-        re, im = local(stg, sub)
-        if raw:
-            # c-major [S, P·V] rows → [S, T, C, P] outside the body
-            re = jnp.transpose(
-                re.reshape(-1, p_pols, c, t), (0, 3, 2, 1))
-            im = jnp.transpose(
-                im.reshape(-1, p_pols, c, t), (0, 3, 2, 1))
-        else:
-            re = re.reshape(-1, t, c, p_pols)
-            im = im.reshape(-1, t, c, p_pols)
-        return re, im
-
-    return jax.jit(fn)
-
-
 def sharded_gridder_to_grid(
     params: IDGParams,
     mesh: Mesh,
@@ -418,28 +164,21 @@ def sharded_gridder_to_grid(
     apply_fft: bool = True,
     grid_sharded: bool = False,
     w_rank: int | None = None,
-    grid_method: str = "scatter",
-    range_w: int | None = None,
+    kernel_kw: dict | None = None,
 ):
-    """jitted fn(sobs_sharded[, tstarts, lens]) -> [P, G, G] grid pair.
+    """jitted fn(sobs_sharded) -> [P, G, G] grid pair.
 
     Full adjoint pipeline across the mesh: local gridder → local subgrid
     iFFT + scatter-add → collective reduction. `grid_sharded=False` returns
-    the grid replicated via a staged psum — inner (ICI) axis first, then
-    outer (DCN) axes on hierarchical meshes (distributed.hierarchical_psum);
-    `grid_sharded=True` returns each chip's row-block via `psum_scatter`
-    over the innermost axis (bandwidth-optimal when the grid stays
-    distributed), reduced across outer axes by psum.
-
-    grid_method='ranges' runs the block-sorted range-read accumulator per
-    shard (the single-chip fast path): the observation must come from
-    shard_observation_block_sorted, whose [n_dev, 4, NBp] tables and
-    global window `range_w` are passed as the extra fn arguments.
+    the grid replicated via psum (on a multi-host mesh staged inner axis
+    first, distributed.hierarchical_psum); `grid_sharded=True` returns each
+    device's row block via `psum_scatter` over the innermost axis, reduced
+    across outer axes by psum.
     """
     axis = tuple(mesh.axis_names)
     inner = axis[-1]
     n_inner = mesh.shape[inner]
-    kernel = _kernel_fn("gridder", version, w_rank)
+    kernel = _kernel_fn("gridder", version, w_rank, kernel_kw)
     specs = _obs_specs(axis)
     g = params.grid_size
     if grid_sharded and g % n_inner:
@@ -448,43 +187,24 @@ def sharded_gridder_to_grid(
             f"divide the grid rows ({g})"
         )
     out_spec = (P(None, inner, None),) * 2 if grid_sharded else (P(), P())
-    use_ranges = grid_method == "ranges"
-    if use_ranges:
-        if not apply_fft or range_w is None:
-            raise ValueError(
-                "grid_method='ranges' requires apply_fft=True and the "
-                "range_w window from shard_observation_block_sorted"
-            )
-        in_specs = (specs, P(axis), P(axis))
-    else:
-        in_specs = (specs,)
 
     @partial(
-        jax.shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
+        jax.shard_map, mesh=mesh, in_specs=(specs,), out_specs=out_spec,
         check_vma=False,
     )
-    def local(sobs, *tables):
+    def local(sobs):
         sobs = _localize_time_offset(sobs, params, axis)
         sub = kernel(params, sobs)
-        if use_ranges:
-            from ..ops.grid import subgrids_to_grid_ranges_local
-
-            grid = subgrids_to_grid_ranges_local(
-                sub, sobs.metadata.coord_x, sobs.metadata.coord_y, g,
-                tables[0][0], tables[1][0], range_w,
-            )
-        else:
-            grid = subgrids_to_grid(
-                sub, sobs.metadata.coord_x, sobs.metadata.coord_y, g,
-                apply_fft,
-            )
+        grid = subgrids_to_grid(
+            sub, sobs.metadata.coord_x, sobs.metadata.coord_y, g, apply_fft,
+        )
         if grid_sharded:
             def scatter(x):
                 x = jax.lax.psum_scatter(
                     x.reshape(x.shape[0], n_inner, g // n_inner, g),
                     inner, scatter_dimension=1, tiled=False,
                 ).reshape(x.shape[0], g // n_inner, g)
-                for name in axis[:-1]:   # outer (DCN) reduction of blocks
+                for name in axis[:-1]:   # outer (between-host) reduction
                     x = jax.lax.psum(x, name)
                 return x
 
@@ -500,6 +220,7 @@ def sharded_grid_to_degridder(
     version: str = "xla_v2",
     apply_fft: bool = True,
     w_rank: int | None = None,
+    kernel_kw: dict | None = None,
 ):
     """jitted fn(sobs_sharded, grid_pair_replicated) -> (re, im) visibilities.
 
@@ -509,7 +230,7 @@ def sharded_grid_to_degridder(
     all-gathers the row blocks first.
     """
     axis = tuple(mesh.axis_names)
-    kernel = _kernel_fn("degridder", version, w_rank)
+    kernel = _kernel_fn("degridder", version, w_rank, kernel_kw)
     specs = _obs_specs(axis)
 
     @partial(
@@ -534,18 +255,19 @@ def sharded_grid_to_degridder_gather(
     version: str = "xla_v2",
     apply_fft: bool = True,
     w_rank: int | None = None,
+    kernel_kw: dict | None = None,
 ):
     """jitted fn(sobs_sharded, grid_pair_row_sharded) -> visibilities.
 
     Forward pipeline for a grid that STAYS row-sharded over the innermost
     mesh axis (the layout sharded_gridder_to_grid(grid_sharded=True)
-    produces): all_gather the row blocks over ICI, then gather tiles + FFT +
+    produces): all_gather the row blocks, then gather tiles + FFT +
     local degridder. The all_gather is the exact adjoint collective of the
     gridder direction's psum_scatter.
     """
     axis = tuple(mesh.axis_names)
     inner = axis[-1]
-    kernel = _kernel_fn("degridder", version, w_rank)
+    kernel = _kernel_fn("degridder", version, w_rank, kernel_kw)
     specs = _obs_specs(axis)
     g = params.grid_size
 

@@ -2,7 +2,7 @@
 
 The reference uses AoS POD structs (idg::Metadata/Baseline/Coordinate/
 UVWCoordinate/Visibility, app/common/types.hpp:11-50) over owning Array1D..4D
-containers (types.hpp:58-356). On TPU the idiomatic layout is
+containers (types.hpp:58-356). In JAX the idiomatic layout is
 structure-of-arrays jnp/np ndarrays with static shapes, bundled in frozen
 dataclasses registered as JAX pytrees, so whole bundles pass through jit /
 shard_map unchanged.
@@ -99,9 +99,9 @@ class Observation:
 class SplitObservation:
     """Device-side observation: complex arrays split into f32 re/im planes.
 
-    The TPU compute path is complex-free (split-complex is the idiomatic MXU
-    formulation, and this backend rejects complex64); splitting happens once
-    at the host boundary via `split_observation`.
+    The device compute path is complex-free (split-complex pairs map every
+    complex product onto real dots, ops/complexpair.py); splitting happens
+    once at the host boundary via `split_observation`.
     """
 
     uvw: Any           # f32[S, T, 3]

@@ -99,9 +99,8 @@ class format_saver:
 
 def print_device_info() -> None:
     """Device info banner (app/CUDA/util.cpp:25-45 analogue: the reference
-    prints CU count, clock and memory size; here core/memory figures come
-    from JAX device attributes and memory_stats when the platform exposes
-    them)."""
+    prints CU count, clock and memory size; here the figures come from JAX
+    device attributes and memory_stats)."""
     import jax
 
     dev = jax.devices()[0]
@@ -111,8 +110,6 @@ def print_device_info() -> None:
     print(f"{'Device count':<30s}== {jax.device_count():>10d}")
     print(f"{'Local device count':<30s}== {jax.local_device_count():>10d}")
     print(f"{'Process count':<30s}== {jax.process_count():>10d}")
-    if hasattr(dev, "num_cores"):
-        print(f"{'Cores on chip':<30s}== {dev.num_cores:>10}")
     try:
         stats = dev.memory_stats() or {}
     except Exception:
@@ -123,10 +120,3 @@ def print_device_info() -> None:
         print(f"{'Device memory (GiB)':<30s}== {limit / 2**30:>10.2f}")
     if in_use is not None:
         print(f"{'Memory in use (GiB)':<30s}== {in_use / 2**30:>10.2f}")
-    from .roofline import device_peaks
-
-    peaks = device_peaks(dev.device_kind)
-    if peaks is not None:
-        peak_flops, peak_bw = peaks
-        print(f"{'Peak bf16 TFLOP/s (MXU)':<30s}== {peak_flops / 1e12:>10.1f}")
-        print(f"{'Peak HBM GB/s':<30s}== {peak_bw / 1e9:>10.0f}")

@@ -4,7 +4,8 @@ Same derived metrics, console table, and CSV schema as the reference
 (app/common/common.cpp:27-98): runtime ms, GFLOP/s, GB/s, FLOP/Byte, MVis/s,
 and (when energy is known) W / GFLOP/s/W / MVis/J. CSV files are written to
 $OUTPUT_PATH as ``<device>-<name><ext>`` with one ``metric,value`` row each;
-this framework uses the ``-tpu.csv`` extension (reference: -cuda.csv/-hip.csv).
+the extension names the platform the run used, ``-gpu.csv`` on the card
+(reference: -cuda.csv/-hip.csv).
 """
 
 from __future__ import annotations
@@ -47,14 +48,18 @@ def report(
     joules: float = 0.0,
     roofline: Optional[float] = None,
     seconds_std: Optional[float] = None,
+    roofline_bound: Optional[str] = None,
 ) -> None:
     """Console one-liner (common.cpp:27-56 format; roofline % and the ±σ
-    noise bound are new)."""
+    noise bound are new). `roofline_bound` names the peak the roofline
+    share is taken against (utils/roofline.py)."""
     head = f"{name:>20s}: {seconds * 1e3:7.2f} ms"
     if seconds_std is not None:
         head += f" (±{seconds_std * 1e3:.2f})"
     parts = [head]
     for label, value in _metrics(seconds, gflops, gbytes, mvis, joules, roofline)[1:]:
+        if label == "roofline_pct" and roofline_bound:
+            label = f"roofline_pct ({roofline_bound})"
         parts.append(f"{value:7.2f} {label}")
     print(", ".join(parts))
 
@@ -72,6 +77,7 @@ def report_csv(
     roofline: Optional[float] = None,
     seconds_std: Optional[float] = None,
     extra: Optional[dict] = None,
+    roofline_bound: Optional[str] = None,
 ) -> Optional[str]:
     """CSV emitter (common.cpp:58-98). Returns the written path. `extra`
     appends workload-specific rows (e.g. the pipeline's stage split)."""
@@ -92,19 +98,28 @@ def report_csv(
                     else f"{label},{value:.2f}\n")
         if not joules:
             # The reference fills these via libpowersensor
-            # (app/CUDA/util.cpp:131-155); TPU power counters are not
-            # host-readable on this platform, so emit explicit n/a rows —
-            # a reader can then tell "unmeasurable" from "forgotten".
+            # (app/CUDA/util.cpp:131-155); without an energy reading emit
+            # explicit n/a rows, so a reader can tell "not measured" from
+            # "forgotten".
             for label in ("W", "GFLOP/s/W", "MVis/J"):
                 f.write(f"{label},n/a\n")
+        if roofline is not None and roofline_bound:
+            f.write(f"roofline_bound,{roofline_bound}\n")
         for label, value in (extra or {}).items():
             f.write(f"{label},{value:.2f}\n")
     return file_path
 
 
 def device_name() -> str:
-    """Device identifier for CSV filenames (reference uses the CUDA device
-    name; we use the JAX device kind, e.g. 'TPU v5 lite')."""
+    """Device identifier for CSV filenames: the JAX device kind, e.g.
+    'NVIDIA H100 80GB HBM3' (the reference uses the CUDA device name)."""
     import jax
 
     return jax.devices()[0].device_kind
+
+
+def csv_extension() -> str:
+    """``-<platform>.csv``, e.g. ``-gpu.csv``."""
+    import jax
+
+    return f"-{jax.devices()[0].platform}.csv"

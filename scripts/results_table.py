@@ -19,9 +19,10 @@ def main() -> int:
     args = ap.parse_args()
 
     rows = []
-    for path in sorted(glob.glob(os.path.join(args.dir, "*-tpu.csv"))):
+    for path in sorted(glob.glob(os.path.join(args.dir, "*-gpu.csv"))):
         name = os.path.basename(path)
-        m = re.match(r"(.+?)-((?:de)?gridder_.*|grid_.*|vadd.*)-tpu\.csv", name)
+        m = re.match(r"(.+?)-((?:de)?gridder_.*|grid_.*|pipeline_.*|vadd.*)"
+                     r"-gpu\.csv", name)
         if not m:
             continue
         bench = m.group(2)

@@ -1,7 +1,7 @@
 """Multi-process worker for test_distributed.py::test_multiprocess_pipeline.
 
 Each process (one per fake "host") initializes jax.distributed against a
-shared coordinator, builds the hierarchical (host × chip) mesh over the
+shared coordinator, builds the hierarchical (host × device) mesh over the
 global CPU devices, runs the sharded gridder→grid pipeline, and writes its
 (replicated) grid result to a per-process .npy for the parent to compare.
 
@@ -39,7 +39,7 @@ dist.init_distributed(
 assert jax.process_count() == nproc
 assert jax.device_count() == nproc * 2
 
-mesh = dist.make_hier_mesh()  # (nproc hosts) x (2 chips)
+mesh = dist.make_hier_mesh()  # (nproc hosts) x (2 devices)
 params = IDGParams(
     grid_size=64,
     subgrid_size=16,

@@ -1,5 +1,8 @@
 """CLI smoke tests (subprocess, CPU, shrunken problems via env vars —
-exercising the same env-var config surface as the reference binaries)."""
+exercising the same env-var config surface as the reference binaries).
+
+Perf modes refuse any device but the GPU; IDG_ALLOW_CPU=1 lets these tests
+drive them on the CPU, and every CSV then names the cpu platform."""
 
 import json
 import os
@@ -19,6 +22,7 @@ SMALL_ENV = {
     "NR_CHANNELS": "8",
     "NR_ITERATIONS": "2",
     "NR_WARM_UP_RUNS": "1",
+    "IDG_ALLOW_CPU": "1",
 }
 
 
@@ -57,6 +61,19 @@ def test_cli_check_degridder():
     assert ">>> Result PASSED" in proc.stdout
 
 
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_cli_check_pallas(workload):
+    """Check mode drives the Pallas kernel (interpret mode off the card)
+    against the oracle."""
+    proc = _run(
+        ["run", "--workload", workload, "--version", "pallas_triton",
+         "--mode", "check"],
+        extra_env=SMALL_ENV,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert ">>> Result PASSED" in proc.stdout
+
+
 def test_cli_perf_writes_csv(tmp_path):
     env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path))
     proc = _run(
@@ -64,7 +81,7 @@ def test_cli_perf_writes_csv(tmp_path):
         extra_env=env,
     )
     assert proc.returncode == 0, proc.stderr
-    csvs = list(tmp_path.glob("*gridder_xla_v2-tpu.csv"))
+    csvs = list(tmp_path.glob("*gridder_xla_v2-cpu.csv"))
     assert len(csvs) == 1
     lines = csvs[0].read_text().strip().splitlines()
     metrics = dict(line.split(",") for line in lines)
@@ -91,26 +108,77 @@ def test_bench_emits_one_json_line(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO
     env["BENCH_KERNEL"] = "xla_v2"
+    env["BENCH_DEGRIDDER_KERNEL"] = "xla_v4"
     proc = subprocess.run(
         [sys.executable, "bench.py"],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    payload = json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    payload = json.loads(lines[0])
     assert set(payload) >= {"metric", "value", "unit", "vs_baseline"}
     assert payload["value"] > 0
-    # the degridder rides the same line (round-5: driver-visible tracking
-    # of both workloads); absent only if every degridder candidate failed
-    assert payload.get("degridder_value", 1) > 0
-    if "degridder_metric" in payload:
-        assert payload["degridder_unit"] == "MVis/s"
+    # the named kernels are the ones timed — no fallback
+    assert payload["metric"] == "gridder_xla_v2_throughput"
+    assert payload["degridder_metric"] == "degridder_xla_v4_throughput"
+    assert payload["degridder_value"] > 0 and payload["pipeline_value"] > 0
+    assert payload["degridder_unit"] == payload["pipeline_unit"] == "MVis/s"
+    assert payload["device"]["platform"] == "cpu"
+    assert payload["device"]["kind"] == "cpu" and payload["device"]["count"] >= 1
 
 
-def test_cli_grid_stage(tmp_path):
+def _bench_env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "IDG_ALLOW_CPU"}
+    env.update({k: v for k, v in SMALL_ENV.items() if k != "IDG_ALLOW_CPU"})
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=REPO, **extra)
+    return env
+
+
+def test_bench_refuses_cpu():
+    """On a machine without a GPU, bench.py exits non-zero, says so, and
+    prints no number."""
+    proc = subprocess.run(
+        [sys.executable, "bench.py"], capture_output=True, text=True,
+        env=_bench_env(), cwd=REPO, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no GPU found" in proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def test_bench_unknown_kernel_fails():
+    """A named kernel that does not exist is an error, not a fallback."""
+    proc = subprocess.run(
+        [sys.executable, "bench.py"], capture_output=True, text=True,
+        env=_bench_env(IDG_ALLOW_CPU="1", BENCH_KERNEL="pallas_v6"),
+        cwd=REPO, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no kernel ('gridder', 'pallas_v6')" in proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("args", [
+    ["run", "--workload", "gridder", "--version", "xla_v2"],
+    ["grid"],
+    ["pipeline", "--version", "xla_v2"],
+    ["vadd", "--n", "1024"],
+])
+def test_cli_perf_modes_refuse_cpu(args):
+    env = {k: v for k, v in SMALL_ENV.items() if k != "IDG_ALLOW_CPU"}
+    proc = _run(args, extra_env=env)
+    assert proc.returncode != 0
+    assert "no GPU found" in proc.stderr
+
+
+@pytest.mark.parametrize("direction, name", [("to-grid", "grid_add"),
+                                             ("to-subgrids", "grid_extract")])
+def test_cli_grid_stage(tmp_path, direction, name):
     env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["grid"], extra_env=env)
+    proc = _run(["grid", "--direction", direction], extra_env=env)
     assert proc.returncode == 0, proc.stderr
-    csvs = list(tmp_path.glob("*grid_add-tpu.csv"))
+    csvs = list(tmp_path.glob(f"*{name}-cpu.csv"))
     assert len(csvs) == 1
     metrics = dict(
         line.split(",") for line in csvs[0].read_text().strip().splitlines()
@@ -143,49 +211,21 @@ def test_cli_sweep_stations_suffix(tmp_path):
         extra_env=env,
     )
     assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*gridder_xla_v2-tpu.csv"))
+    assert list(tmp_path.glob("*gridder_xla_v2-cpu.csv"))
 
 
-def test_cli_grid_stage_pallas(tmp_path):
+@pytest.mark.parametrize("direction, version, name", [
+    ("grid", "xla_v2", "pipeline_xla_v2"),
+    ("degrid", "xla_v4", "pipeline_degrid_xla_v4"),
+])
+def test_cli_pipeline_both_directions(tmp_path, direction, version, name):
     env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["grid", "--method", "pallas"], extra_env=env)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*grid_add_pallas-tpu.csv"))
-
-
-@pytest.mark.slow
-def test_cli_grid_stage_ranges_and_extract(tmp_path):
-    env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["grid", "--method", "ranges"], extra_env=env)
-    assert proc.returncode == 0, proc.stderr
-    assert "range plan" in proc.stdout
-    assert list(tmp_path.glob("*grid_add_ranges-tpu.csv"))
-    proc = _run(["grid", "--direction", "to-subgrids", "--method", "ranges"],
-                extra_env=env)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*grid_extract_ranges-tpu.csv"))
-    # memory guard tripped -> per-stripe streamed extraction
-    proc = _run(["grid", "--direction", "to-subgrids", "--method", "ranges",
-                 "--suffix", "_str"],
-                extra_env=dict(env, IDG_MAX_EXTRACT_BYTES="1",
-                               NR_ITERATIONS="1"))
-    assert proc.returncode == 0, proc.stderr
-    assert "streamed per-stripe ranges" in proc.stdout
-    assert list(tmp_path.glob("*grid_extract_ranges_str-tpu.csv"))
-
-
-@pytest.mark.slow
-def test_cli_pipeline_both_directions(tmp_path):
-    env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["pipeline", "--version", "xla_v2"], extra_env=env,
-                timeout=600)
+    proc = _run(["pipeline", "--direction", direction, "--version", version],
+                extra_env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr
     assert "stage split" in proc.stdout
-    assert list(tmp_path.glob("*pipeline_xla_v2-tpu.csv"))
-    proc = _run(["pipeline", "--direction", "degrid"], extra_env=env,
-                timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*pipeline_degrid_pallas_*-tpu.csv"))
+    csv = next(tmp_path.glob(f"*{name}-cpu.csv")).read_text()
+    assert "grid_stage_ms" in csv
 
 
 def test_cli_run_sustain(tmp_path):
@@ -196,89 +236,8 @@ def test_cli_run_sustain(tmp_path):
                  "--sustain", "0.3"], extra_env=env)
     assert proc.returncode == 0, proc.stderr
     assert "sustained" in proc.stdout
-    csv = next(tmp_path.glob("*gridder_xla_v2-tpu.csv")).read_text()
+    csv = next(tmp_path.glob("*gridder_xla_v2-cpu.csv")).read_text()
     assert "sustained_ms" in csv and "sustain_drift_pct" in csv
-
-
-@pytest.mark.slow
-def test_cli_pipeline_fused_default(tmp_path):
-    """The grid-direction pipeline defaults to the fused-pieces kernel
-    for pallas versions (SUBGRID_SIZE=16 satisfies the range-kernel
-    P·N² % 1024 == 0 constraint); --no-fuse keeps the staged producer
-    path. Both must produce a CSV through the cmd_pipeline wiring."""
-    env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["pipeline", "--version", "pallas_v6"], extra_env=env,
-                timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert "stage split" in proc.stdout
-    assert list(tmp_path.glob("*pipeline_pallas_v6-tpu.csv"))
-    proc = _run(["pipeline", "--version", "pallas_v6", "--no-fuse",
-                 "--suffix", "_nofuse"], extra_env=env, timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*pipeline_pallas_v6_nofuse-tpu.csv"))
-
-
-@pytest.mark.slow
-def test_cli_pipeline_fused_tile_path_rows_form(tmp_path):
-    """Tile-path plans (nbp <= 2·S: stations=5 × timeslots=4 → S=40 ≥
-    nbp/2 = 32 at grid 128/subgrid 16) engage the zero-copy row-form
-    boundary (staged_gridder_pieces_runner pad_rows=..., kernel
-    rows_out) — the fullsize default-problem path; SMALL_ENV's S=6 is
-    sparse and takes the 4-D pieces branch instead."""
-    env = dict(SMALL_ENV, NR_STATIONS="5", NR_TIMESLOTS="4",
-               OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["pipeline", "--version", "pallas_v6"], extra_env=env,
-                timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*pipeline_pallas_v6-tpu.csv"))
-
-
-@pytest.mark.slow
-def test_cli_pipeline_fused_odd_rowsize_falls_back(tmp_path):
-    """SUBGRID_SIZE=12 → P·N² = 576, not a multiple of 1024: the pieces
-    runner must decline (returning the staged_runner fallback) instead
-    of crashing in subgrids_to_grid_ranges(tiles_pair=...)."""
-    env = dict(SMALL_ENV, GRID_SIZE="96", SUBGRID_SIZE="12",
-               OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2")
-    proc = _run(["pipeline", "--version", "pallas_v6"], extra_env=env,
-                timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*pipeline_pallas_v6-tpu.csv"))
-
-
-@pytest.mark.slow
-def test_cli_pipeline_degrid_chunked(tmp_path):
-    """IDG_MAX_CHUNK below S engages the per-chunk extraction→degridder
-    composition (sliced plans, one consumer per chunk)."""
-    env = dict(SMALL_ENV, OUTPUT_PATH=str(tmp_path), NR_WINDOWS="2",
-               IDG_MAX_CHUNK="4")
-    proc = _run(["pipeline", "--direction", "degrid"], extra_env=env,
-                timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert "stage split" in proc.stdout
-    assert list(tmp_path.glob("*pipeline_degrid_pallas_*-tpu.csv"))
-    # the A/B flag restores the monolithic extraction + dynamic-slice path
-    proc = _run(["pipeline", "--direction", "degrid", "--whole-extract",
-                 "--suffix", "_whole"], extra_env=env, timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    assert list(tmp_path.glob("*pipeline_degrid_pallas_*_whole-tpu.csv"))
-
-
-def test_cli_scaling_pipeline_ranges():
-    env = dict(
-        SMALL_ENV,
-        NR_TIMESLOTS="4",
-        NR_STATIONS="5",
-        NR_WINDOWS="2",
-        XLA_FLAGS="--xla_force_host_platform_device_count=8",
-    )
-    proc = _run(
-        ["scaling", "--workload", "pipeline", "--version", "xla_v2",
-         "--mesh-sizes", "8", "--grid-method", "ranges"],
-        extra_env=env, timeout=600,
-    )
-    assert proc.returncode == 0, proc.stderr
-    assert "MVis/s" in proc.stdout
 
 
 @pytest.mark.slow

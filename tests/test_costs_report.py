@@ -3,6 +3,7 @@
 import os
 
 import numpy as np
+import pytest
 
 from idg_tpu import IDGParams
 from idg_tpu.utils import bytes_gridder, flops_gridder, report, report_csv, workload_costs
@@ -49,8 +50,8 @@ def test_report_console(capsys):
 def test_report_csv(tmp_path):
     path = report_csv(
         "gridder_v1",
-        "TPU v5 lite",
-        "-tpu.csv",
+        "NVIDIA H100 80GB HBM3",
+        "-gpu.csv",
         0.5,
         gflops=100.0,
         gbytes=10.0,
@@ -58,18 +59,18 @@ def test_report_csv(tmp_path):
         output_path=str(tmp_path),
     )
     assert path is not None and os.path.exists(path)
-    assert os.path.basename(path) == "TPU-v5-lite-gridder_v1-tpu.csv"
+    assert os.path.basename(path) == "NVIDIA-H100-80GB-HBM3-gridder_v1-gpu.csv"
     lines = open(path).read().strip().splitlines()
     assert lines[0] == "ms,500.00"
     assert "GFLOP/s,200.00" in lines
     assert "MVis/s,100.00" in lines
-    # Power provenance: joules unmeasurable on this platform -> explicit n/a.
+    # Power provenance: no energy measured -> explicit n/a rows.
     assert "W,n/a" in lines and "MVis/J,n/a" in lines
 
 
 def test_report_csv_power_rows_when_measured(tmp_path):
     path = report_csv(
-        "gridder_v1", "dev", "-tpu.csv", 0.5, gflops=100.0, mvis=50.0,
+        "gridder_v1", "dev", "-gpu.csv", 0.5, gflops=100.0, mvis=50.0,
         joules=25.0, output_path=str(tmp_path),
     )
     metrics = dict(
@@ -81,7 +82,7 @@ def test_report_csv_power_rows_when_measured(tmp_path):
 
 
 def test_report_csv_missing_device(capsys, tmp_path):
-    assert report_csv("g", "", "-tpu.csv", 0.5, output_path=str(tmp_path)) is None
+    assert report_csv("g", "", "-gpu.csv", 0.5, output_path=str(tmp_path)) is None
     assert "not provided" in capsys.readouterr().out
 
 
@@ -106,14 +107,17 @@ def test_timing_result_variance():
     from idg_tpu.utils.timing import TimingResult
 
     t = TimingResult(
-        seconds=0.9e-3, iterations=10, warmup_runs=1,
-        all_seconds=(0.010, 0.012, 0.011), sync_overhead=0.001,
+        seconds=1.0e-3, iterations=10, warmup_runs=1,
+        all_seconds=(0.010, 0.012, 0.011),
     )
-    assert abs(t.seconds_mean - ((0.011 + 0.012 + 0.010) / 3 - 0.001) / 10) < 1e-12
+    assert abs(t.seconds_mean - (0.011 + 0.012 + 0.010) / 3 / 10) < 1e-12
+    assert abs(t.seconds_median - 0.0011) < 1e-12
+    q1, q3 = t.seconds_quartiles
+    assert q1 <= t.seconds_median <= q3
     assert t.seconds_std > 0
     single = TimingResult(
         seconds=1e-3, iterations=5, warmup_runs=1,
-        all_seconds=(0.006,), sync_overhead=0.001,
+        all_seconds=(0.006,),
     )
     assert single.seconds_std == 0.0
 
@@ -122,7 +126,7 @@ def test_report_csv_stddev_row(tmp_path):
     from idg_tpu.utils.report import report_csv
 
     path = report_csv(
-        "unit_test", "dev", "-tpu.csv", 0.01, gflops=1.0,
+        "unit_test", "dev", "-gpu.csv", 0.01, gflops=1.0,
         output_path=str(tmp_path), seconds_std=0.0001,
     )
     metrics = dict(
@@ -145,7 +149,7 @@ def test_time_kernel_sustained():
     x = jnp.arange(1024.0)
     h = HarnessConfig(nr_warm_up_runs=1, nr_iterations=2)
     res = time_kernel_sustained(fn, x, duration_s=0.3, harness=h)
-    assert res.launches >= 10
+    assert res.launches >= 1
     assert res.window_seconds >= 0.3
     assert 0 < res.seconds < res.window_seconds
     assert abs(res.seconds * res.launches - res.window_seconds) \
@@ -158,3 +162,18 @@ def test_time_kernel_sustained():
     single = SustainedResult(seconds=1e-3, launches=10, window_seconds=0.01,
                              chunk_seconds=(1e-3,))
     assert single.drift_pct == 0.0
+
+
+@pytest.mark.parametrize("bound", ["tf32", "fp32"])
+def test_report_names_roofline_bound(tmp_path, capsys, bound):
+    """A roofline share names the peak it is taken against."""
+    from idg_tpu.utils.report import report, report_csv
+
+    report("k", 0.01, gflops=1.0, gbytes=1.0, roofline=0.25,
+           roofline_bound=bound)
+    assert f"25.00 roofline_pct ({bound})" in capsys.readouterr().out
+    path = report_csv("k", "dev", "-gpu.csv", 0.01, gflops=1.0, gbytes=1.0,
+                      output_path=str(tmp_path), roofline=0.25,
+                      roofline_bound=bound)
+    rows = dict(line.split(",") for line in open(path).read().splitlines())
+    assert rows["roofline_pct"] == "25.00" and rows["roofline_bound"] == bound

@@ -1,5 +1,5 @@
-"""Multi-host distribution layer: hierarchical meshes, staged ICI→DCN
-reductions, sharded-grid degridder gather, and a REAL multi-process run
+"""Multi-host distribution layer: (host × device) meshes, reductions staged
+within a host then across hosts, sharded-grid degridder gather, and a REAL multi-process run
 (jax.distributed over Gloo on CPU) — the north-star scaling layer
 (SURVEY.md §2.7), all new capability vs the single-GPU reference.
 """
@@ -30,7 +30,7 @@ from idg_tpu.utils.compare import check_error
 @pytest.fixture(scope="module")
 def hier_mesh():
     assert len(jax.devices()) == 8
-    return make_hier_mesh(chips_per_host=2)  # 4 "hosts" x 2 "chips"
+    return make_hier_mesh(devices_per_host=2)  # 4 "hosts" x 2 devices
 
 
 @pytest.fixture(scope="module")
@@ -61,7 +61,7 @@ def local_reference(par_params, par_obs):
 
 
 def test_hier_mesh_shape(hier_mesh):
-    assert hier_mesh.axis_names == ("host", "chip")
+    assert hier_mesh.axis_names == ("host", "device")
     assert hier_mesh.devices.shape == (4, 2)
 
 
@@ -84,7 +84,8 @@ def replicated_grid(par_params, par_obs, hier_mesh):
 
 def test_hierarchical_grid_psum(par_params, par_obs, hier_mesh, replicated_grid,
                                 local_reference):
-    """Staged ICI→DCN reduction == local scatter-add of all subgrids."""
+    """Staged host-local then cross-host reduction == local scatter-add of
+    all subgrids."""
     from idg_tpu.ops.grid import subgrids_to_grid
 
     md = par_obs.metadata
@@ -97,7 +98,7 @@ def test_hierarchical_grid_psum(par_params, par_obs, hier_mesh, replicated_grid,
 
 def test_grid_sharded_psum_scatter_hier(par_params, par_obs, hier_mesh,
                                         replicated_grid):
-    """Row-sharded (psum_scatter over chip + psum over host) blocks
+    """Row-sharded (psum_scatter over device + psum over host) blocks
     reassemble into the replicated grid."""
     sobs, _ = shard_observation(par_params, split_observation(par_obs), hier_mesh)
     fn = sharded_gridder_to_grid(
@@ -164,7 +165,7 @@ def test_multiprocess_pipeline(tmp_path):
         nr_timesteps_subgrid=16, nr_channels=8,
     )
     obs, _ = make_observation(params)
-    mesh = make_hier_mesh(chips_per_host=2)
+    mesh = make_hier_mesh(devices_per_host=2)
     sobs, _ = shard_observation(params, split_observation(obs), mesh)
     fn = sharded_gridder_to_grid(params, mesh, "xla_v2")
     re, im = fn(sobs)

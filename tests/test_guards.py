@@ -1,16 +1,17 @@
 """API-boundary correctness guards and the nonzero-w path.
 
-Covers the round-2 hardening items:
+Covers:
 - non-uniform channel spacing: recurrence kernels (reference v8's silent
   assumption, gridder_v8.cu:135-186) must NOT silently return wrong results
   through the public API — they fall back to a non-recurrence rung;
 - w-term Taylor rank: auto-escalation when the observation's |μ·n| bound
-  exceeds the tolerance, fallback for the fixed-rank w-free rungs;
+  exceeds the tolerance, for the XLA separable kernel and the Pallas
+  kernel alike;
 - nonzero-w generator (make_w_observation) end-to-end against the golden
   oracle, including w_step ≠ 0 / coord_z ≠ 0 (the reference's w machinery,
-  init.cpp:182-199, gridder_reference.cpp:32-39);
-- the direct pallas kernels carrying the w_off·n phase-offset term;
-- degridder channel-recurrence resync for C > 16.
+  init.cpp:182-199, gridder_reference.cpp:32-39).
+
+The Pallas kernel runs in interpret mode with full-f32 dots here (CPU).
 """
 
 import dataclasses
@@ -18,8 +19,9 @@ import warnings
 
 import numpy as np
 import pytest
+from jax import lax
 
-from idg_tpu import IDGParams, make_observation, make_w_observation
+from idg_tpu import make_w_observation
 from idg_tpu.models.reference import degridder_reference, gridder_reference
 from idg_tpu.data import initialize_subgrids
 from idg_tpu.ops.api import (
@@ -33,6 +35,12 @@ from idg_tpu.ops.registry import get_kernel
 from idg_tpu.types import Observation
 from idg_tpu.utils.compare import check_error
 
+CPU_PALLAS = {"interpret": True, "precision": lax.Precision.HIGHEST}
+
+
+def _kw(version):
+    return CPU_PALLAS if version.startswith("pallas") else {}
+
 
 def _with_nonuniform_channels(obs: Observation) -> Observation:
     k = np.array(obs.wavenumbers, copy=True)
@@ -45,14 +53,7 @@ def _with_nonuniform_channels(obs: Observation) -> Observation:
 # --------------------------------------------------------------------------
 
 def test_recurrence_kernels_marked():
-    for workload, version in [
-        ("gridder", "xla_v3"), ("gridder", "pallas_v2"),
-        ("gridder", "pallas_v5"), ("gridder", "pallas_v6"),
-        ("gridder", "pallas_v7"),
-        ("degridder", "xla_v3"), ("degridder", "pallas_v2"),
-        ("degridder", "pallas_v5"), ("degridder", "pallas_v6"),
-        ("degridder", "pallas_v7"), ("degridder", "pallas_v8"),
-    ]:
+    for workload, version in [("gridder", "xla_v3"), ("degridder", "xla_v3")]:
         e = get_kernel(workload, version)
         assert e.uniform_channels, (workload, version)
         assert e.fallback is not None, (workload, version)
@@ -67,13 +68,13 @@ def test_nonuniform_channels_recurrence_is_wrong_raw(small_params, small_obs):
 
     obs = _with_nonuniform_channels(small_obs)
     golden = gridder_reference(small_params, obs)
-    fn = _jitted("gridder", "pallas_v5", False, None)
+    fn = _jitted("gridder", "xla_v3")
     re, im = fn(small_params, split_observation(obs))
     raw = combine_complex(np.asarray(re), np.asarray(im))
     assert not check_error(raw, golden, verbose=False).passed
 
 
-@pytest.mark.parametrize("version", ["xla_v3", "pallas_v2", "pallas_v5", "pallas_v6"])
+@pytest.mark.parametrize("version", ["xla_v3"])
 def test_gridder_nonuniform_channels_falls_back(version, small_params, small_obs):
     obs = _with_nonuniform_channels(small_obs)
     golden = gridder_reference(small_params, obs)
@@ -83,7 +84,7 @@ def test_gridder_nonuniform_channels_falls_back(version, small_params, small_obs
     assert result.passed, f"{version}: error {result.mean_error}"
 
 
-@pytest.mark.parametrize("version", ["xla_v3", "pallas_v5", "pallas_v6", "pallas_v8"])
+@pytest.mark.parametrize("version", ["xla_v3"])
 def test_degridder_nonuniform_channels_falls_back(version, small_params, small_obs):
     obs = _with_nonuniform_channels(small_obs)
     sub = initialize_subgrids(
@@ -113,66 +114,44 @@ def test_required_w_rank_zero_w(small_params, small_obs):
     assert required_w_rank(small_params, small_obs) == 1
 
 
-def test_w_rank_escalates(small_params, small_obs):
+@pytest.mark.parametrize("version", ["xla_v4", "pallas_triton"])
+def test_w_rank_escalates(version, small_params, small_obs):
     # w=600 -> |mu·n| bound ~0.049: rank 2 insufficient, rank 4 suffices
     obs = _stress_w_obs(small_params, small_obs, 600.0)
     need = required_w_rank(small_params, obs)
     assert need is not None and need > 2
-    version, w_rank = _resolve("gridder", "pallas_v4", small_params, obs)
-    assert version == "pallas_v4" and w_rank == need
+    resolved, w_rank = _resolve("gridder", version, small_params, obs)
+    assert resolved == version and w_rank == need
 
 
-def test_w_rank_escalation_correct(small_params, small_obs):
+@pytest.mark.parametrize("version", ["xla_v4", "pallas_triton"])
+def test_w_rank_escalation_correct(version, small_params, small_obs):
     obs = _stress_w_obs(small_params, small_obs, 600.0)
     golden = gridder_reference(small_params, obs)
     # guard escalates the rank automatically -> inside the gate
-    got = run_gridder(small_params, obs, version="pallas_v4")
+    got = run_gridder(small_params, obs, version=version, **_kw(version))
     assert check_error(got, golden, verbose=False).passed
-    # the un-guarded default rank (explicit override) warns and misses
+    # a too-low rank (explicit override) warns and misses
     with pytest.warns(UserWarning, match="below the required rank"):
-        got2 = run_gridder(small_params, obs, version="pallas_v4", w_rank=2)
+        got2 = run_gridder(small_params, obs, version=version, w_rank=2,
+                           **_kw(version))
     assert not check_error(got2, golden, verbose=False).passed
 
 
-def test_w_free_rung_falls_back_on_nonzero_w(small_params, small_obs):
-    obs = _stress_w_obs(small_params, small_obs, 600.0)
-    golden = gridder_reference(small_params, obs)
-    with pytest.warns(UserWarning, match="w-free"):
-        got = run_gridder(small_params, obs, version="pallas_v7")
-    assert check_error(got, golden, verbose=False).passed
+@pytest.mark.parametrize("version", ["xla_v4", "pallas_triton"])
+def test_w_rank_default_kept_on_zero_w(version, small_params, small_obs):
+    """w = 0 data needs rank 1: the guard keeps the kernel's own default
+    (rank 1 for both)."""
+    assert _resolve("gridder", version, small_params, small_obs) == (
+        version, None)
 
 
-def test_w_rank_override_on_fixed_rank_rung_warns_and_guards(
-    small_params, small_obs
-):
-    """ADVICE r2 (medium): an explicit w_rank on a fixed-rank w-free rung
-    (no w_rank parameter) must (a) warn that the override is ignored and
-    (b) STILL apply the fixed_w_rank-vs-required fallback — previously this
-    path skipped the guard and silently ran rank 1 on w != 0 data."""
-    obs = _stress_w_obs(small_params, small_obs, 600.0)
-    golden = gridder_reference(small_params, obs)
-    with pytest.warns(UserWarning) as rec:
-        got = run_gridder(small_params, obs, version="pallas_v7", w_rank=2)
-    messages = [str(w.message) for w in rec]
-    assert any("override is ignored" in m for m in messages), messages
-    assert any("w-free" in m for m in messages), messages
-    assert check_error(got, golden, verbose=False).passed
-
-
-def test_w_rank_override_on_fixed_rank_rung_w0_data(small_params, small_obs):
-    """Same override on w == 0 data: warn about the ignored override, no
-    fallback needed (rank 1 is exact), result inside the gate."""
-    golden = gridder_reference(small_params, small_obs)
-    with pytest.warns(UserWarning, match="override is ignored"):
-        got = run_gridder(small_params, small_obs, version="pallas_v7", w_rank=3)
-    assert check_error(got, golden, verbose=False).passed
-
-
-def test_w_rank_impractical_raises(small_params, small_obs):
+@pytest.mark.parametrize("version", ["xla_v4", "pallas_triton"])
+def test_w_rank_impractical_raises(version, small_params, small_obs):
     obs = _stress_w_obs(small_params, small_obs, 2.0e4)
     assert required_w_rank(small_params, obs) is None
-    with pytest.raises(ValueError, match="direct full-phase"):
-        run_gridder(small_params, obs, version="pallas_v4")
+    with pytest.raises(ValueError, match="direct full-phase kernel \\(xla_v2\\)"):
+        run_gridder(small_params, obs, version=version, **_kw(version))
 
 
 def test_direct_kernels_exact_for_extreme_w(small_params, small_obs):
@@ -181,7 +160,7 @@ def test_direct_kernels_exact_for_extreme_w(small_params, small_obs):
     golden = gridder_reference(small_params, obs)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        got = run_gridder(small_params, obs, version="pallas_v1")
+        got = run_gridder(small_params, obs, version="xla_v2")
     assert check_error(got, golden, verbose=False).passed
 
 
@@ -214,65 +193,22 @@ def test_make_w_observation_properties(w_problem, small_params, small_obs):
 
 
 @pytest.mark.parametrize(
-    "version",
-    ["xla_reference", "xla_v2", "xla_v4",
-     "pallas_v1", "pallas_v2", "pallas_v4", "pallas_v5", "pallas_v6"],
+    "version", ["xla_reference", "xla_v2", "xla_v4", "pallas_triton"],
 )
 def test_gridder_nonzero_w(version, w_problem):
     params, obs, _ = w_problem
     golden = gridder_reference(params, obs)
-    got = run_gridder(params, obs, version=version)
+    got = run_gridder(params, obs, version=version, **_kw(version))
     result = check_error(got, golden, verbose=False)
     assert result.passed, f"{version}: error {result.mean_error}"
 
 
 @pytest.mark.parametrize(
-    "version",
-    ["xla_reference", "xla_v2", "xla_v4",
-     "pallas_v1", "pallas_v2", "pallas_v4",
-     # v5 duplicates v6's guard path (same recurrence family, same rank
-     # handling) at ~7 s of interpret trace — slow tier keeps it; the
-     # fast tier keeps v6 (recurrence) and v7 (kmerge flagship)
-     pytest.param("pallas_v5", marks=pytest.mark.slow),
-     "pallas_v6", "pallas_v7"],
+    "version", ["xla_reference", "xla_v2", "xla_v4", "pallas_triton"],
 )
 def test_degridder_nonzero_w(version, w_problem):
     params, obs, sub = w_problem
     golden = degridder_reference(params, obs, sub)
-    got = run_degridder(params, obs, sub, version=version)
-    result = check_error(got, golden, verbose=False)
-    assert result.passed, f"{version}: error {result.mean_error}"
-
-
-# --------------------------------------------------------------------------
-# degridder channel-recurrence resync (C > 16)
-# --------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def many_channel_problem():
-    params = IDGParams(
-        grid_size=128, subgrid_size=16, nr_stations=2, nr_timeslots=2,
-        nr_timesteps_subgrid=8, nr_channels=48,
-    )
-    obs, sub = make_observation(params, include_subgrids=True)
-    return params, obs, sub
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("version", ["pallas_v5", "pallas_v6", "pallas_v7"])
-def test_degridder_recurrence_resync_many_channels(version, many_channel_problem):
-    params, obs, sub = many_channel_problem
-    golden = degridder_reference(params, obs, sub)
-    got = run_degridder(params, obs, sub, version=version)
-    result = check_error(got, golden, verbose=False)
-    assert result.passed, f"{version}: error {result.mean_error}"
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("version", ["pallas_v5", "pallas_v6"])
-def test_gridder_recurrence_resync_many_channels(version, many_channel_problem):
-    params, obs, _ = many_channel_problem
-    golden = gridder_reference(params, obs)
-    got = run_gridder(params, obs, version=version)
+    got = run_degridder(params, obs, sub, version=version, **_kw(version))
     result = check_error(got, golden, verbose=False)
     assert result.passed, f"{version}: error {result.mean_error}"

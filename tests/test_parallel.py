@@ -1,4 +1,5 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh.
+"""Multi-device sharding and grid-stage tests on the 8-device virtual CPU
+mesh.
 
 The reference has no multi-device capability to test (SURVEY.md §2.7); this
 layer is new. Every test checks the sharded path bit-matches (or 1e-5-matches)
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 
 import jax
+from jax import lax
 
 from idg_tpu import IDGParams, make_observation
 from idg_tpu.ops.api import run_gridder
@@ -22,6 +24,8 @@ from idg_tpu.parallel.sharded import (
 )
 from idg_tpu.types import combine_complex, split_complex, split_observation
 from idg_tpu.utils.compare import check_error
+
+CPU_PALLAS = {"interpret": True, "precision": lax.Precision.HIGHEST}
 
 
 @pytest.fixture(scope="module")
@@ -94,67 +98,6 @@ def test_sharded_degridder_matches_single_device(mesh, par_params, par_obs):
     assert check_error(got, expected, verbose=False).passed
 
 
-def test_sharded_gridder_staged_matches_unsharded(mesh, par_params, par_obs):
-    """The staged mesh path (stage once globally, reshard, launch-only
-    shard_map bodies) matches the unsharded staged kernel run."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.pallas import STAGED
-    from idg_tpu.parallel.sharded import (
-        shard_staged_inputs,
-        sharded_gridder_staged,
-    )
-
-    sobs = split_observation(par_obs)
-    stage_fn, run_fn = STAGED[("gridder", "pallas_v3")]
-    stg = jax.jit(
-        lambda p, s: stage_fn(p, s, with_vis=True), static_argnums=0
-    )(par_params, sobs)
-    exp_re, exp_im = run_fn(par_params, stg)
-    expected = combine_complex(np.asarray(exp_re), np.asarray(exp_im))
-
-    stg_sh, spair = shard_staged_inputs(
-        par_params, sobs, mesh, "gridder", "pallas_v3")
-    assert spair is None
-    re, im = sharded_gridder_staged(par_params, mesh, "pallas_v3")(stg_sh)
-    got = combine_complex(np.asarray(re), np.asarray(im))
-    assert check_error(got, expected, verbose=False).passed
-
-
-def test_sharded_degridder_staged_matches_unsharded(mesh, par_params,
-                                                    par_obs):
-    """Staged mesh degridder — including the `raw` c-major boundary path
-    (transpose outside the shard_map body) — matches the unsharded staged
-    kernel run."""
-    from idg_tpu.data import initialize_subgrids
-    from idg_tpu.ops.pallas import STAGED
-    from idg_tpu.parallel.sharded import (
-        shard_staged_inputs,
-        sharded_degridder_staged,
-    )
-
-    subgrids = initialize_subgrids(
-        par_params.nr_subgrids, par_params.nr_correlations,
-        par_params.subgrid_size,
-    )
-    sobs = split_observation(par_obs)
-    stage_fn, run_fn = STAGED[("degridder", "pallas_v7")]
-    stg = jax.jit(
-        lambda p, s: stage_fn(p, s, with_vis=False), static_argnums=0
-    )(par_params, sobs)
-    exp_re, exp_im = run_fn(par_params, stg, split_complex(subgrids))
-    expected = combine_complex(np.asarray(exp_re), np.asarray(exp_im))
-
-    stg_sh, spair = shard_staged_inputs(
-        par_params, sobs, mesh, "degridder", "pallas_v7", subgrids)
-    assert spair is not None
-    re, im = sharded_degridder_staged(
-        par_params, mesh, "pallas_v7")(stg_sh, spair)
-    got = combine_complex(np.asarray(re), np.asarray(im))
-    assert got.shape == expected.shape  # raw path re-transposed outside
-    assert check_error(got, expected, verbose=False).passed
-
-
 def test_sharded_grid_reduction_matches_local(mesh, par_params, par_obs):
     """gridder → FFT → scatter-add → psum equals the single-device pipeline."""
     sobs = split_observation(par_obs)
@@ -173,29 +116,6 @@ def test_sharded_grid_reduction_matches_local(mesh, par_params, par_obs):
     np.testing.assert_allclose(
         np.asarray(got[1]), np.asarray(expected[1]), atol=2e-4
     )
-
-
-def test_sharded_grid_reduction_ranges_matches_scatter(mesh, par_params,
-                                                       par_obs):
-    """The per-shard block-sorted range accumulator + psum equals the
-    scatter-based mesh pipeline (subgrid order is irrelevant to the
-    reduced grid)."""
-    from idg_tpu.parallel.sharded import shard_observation_block_sorted
-
-    sobs = split_observation(par_obs)
-    sharded_sobs, _ = shard_observation(par_params, sobs, mesh)
-    expected = sharded_gridder_to_grid(
-        par_params, mesh, "xla_v2")(sharded_sobs)
-    sorted_sobs, _, (tstarts, lens), w = shard_observation_block_sorted(
-        par_params, sobs, mesh)
-    fn = sharded_gridder_to_grid(
-        par_params, mesh, "xla_v2", grid_method="ranges", range_w=w)
-    got = fn(sorted_sobs, tstarts, lens)
-    scale = max(float(np.abs(np.asarray(expected[0])).max()), 1.0)
-    np.testing.assert_allclose(np.asarray(got[0]) / scale,
-                               np.asarray(expected[0]) / scale, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(got[1]) / scale,
-                               np.asarray(expected[1]) / scale, atol=3e-6)
 
 
 def test_sharded_grid_reduction_scatter_variant(mesh, par_params, par_obs):
@@ -314,11 +234,14 @@ def test_scatter_gather_inverse(par_params):
 
 
 def test_sharded_pallas_gridder_matches_single_device(mesh, par_params, par_obs):
-    """Pallas kernels (interpret mode on CPU) compose with shard_map."""
-    expected = run_gridder(par_params, par_obs, version="pallas_v3")
+    """The Pallas kernel (interpret mode on CPU) composes with shard_map:
+    each shard reads its rows at the localized time offsets."""
+    expected = run_gridder(par_params, par_obs, version="pallas_triton",
+                           **CPU_PALLAS)
     sobs = split_observation(par_obs)
     sharded_sobs, _ = shard_observation(par_params, sobs, mesh)
-    re, im = sharded_gridder(par_params, mesh, "pallas_v3")(sharded_sobs)
+    re, im = sharded_gridder(par_params, mesh, "pallas_triton",
+                             kernel_kw=CPU_PALLAS)(sharded_sobs)
     got = combine_complex(np.asarray(re), np.asarray(im))
     assert check_error(got, expected, verbose=False).passed
 
@@ -340,445 +263,6 @@ def test_fft_grid_roundtrip_disjoint_tiles(par_params):
     np.testing.assert_allclose(np.asarray(back[1]), 0.5 * sub, atol=1e-4)
 
 
-def test_grid_wrap_and_pallas_agree(small_params):
-    """Edge tiles wrap periodically, and the Pallas block-bucketed grid-add
-    bit-matches the windowed-scatter path — including wrap-around tiles."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import subgrids_to_grid, subgrids_to_grid_pallas
-
-    rng = np.random.default_rng(7)
-    s, p, n, g = 23, 4, 16, 64
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    # coords in [0, g) so several tiles overhang and must wrap
-    cx = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    cy = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    a = subgrids_to_grid(sub, cx, cy, g, apply_fft=False)
-    for mode in ("vmem", "gather"):
-        b = subgrids_to_grid_pallas(
-            sub, cx, cy, g, apply_fft=False, interpret=True, mode=mode
-        )
-        np.testing.assert_allclose(
-            np.asarray(a[0]), np.asarray(b[0]), atol=2e-6, err_msg=mode
-        )
-        np.testing.assert_allclose(
-            np.asarray(a[1]), np.asarray(b[1]), atol=2e-6, err_msg=mode
-        )
-    # mass conservation: wrap loses nothing
-    np.testing.assert_allclose(
-        float(jnp.sum(a[0])), float(jnp.sum(sub[0])), rtol=1e-5
-    )
-
-
-def test_grid_add_ranges_matches_scatter(small_params):
-    """The range-read kernel (block-sorted metadata, contiguous piece
-    runs) reproduces the windowed scatter, including wrap tiles; unsorted
-    coords are rejected at plan time."""
-    import jax.numpy as jnp
-    import pytest
-
-    from idg_tpu.ops.grid import (
-        block_sort_order, plan_grid_add_ranges, subgrids_to_grid,
-        subgrids_to_grid_ranges,
-    )
-
-    rng = np.random.default_rng(13)
-    s, p, n, g = 29, 4, 16, 64
-    cx_u = rng.integers(0, g, s).astype(np.int32)
-    cy_u = rng.integers(0, g, s).astype(np.int32)
-    order = block_sort_order(cx_u, cy_u, g, n)
-    cx, cy = cx_u[order], cy_u[order]
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    a = subgrids_to_grid(sub, cx, cy, g, apply_fft=False)
-    b = subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=False,
-                                interpret=True)
-    np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]), atol=2e-6)
-    # fused path: the roll rides the iDFT as Fourier phases
-    af = subgrids_to_grid(sub, cx, cy, g, apply_fft=True)
-    bf = subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=True,
-                                 interpret=True)
-    np.testing.assert_allclose(np.asarray(af[0]), np.asarray(bf[0]), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(af[1]), np.asarray(bf[1]), atol=2e-5)
-    if np.any(np.diff((cy_u // n) * (g // n) + cx_u // n) < 0):
-        with pytest.raises(ValueError, match="block-sorted"):
-            plan_grid_add_ranges(cx_u, cy_u, g, n)
-
-
-def test_grid_extract_ranges_matches_gather(small_params):
-    """The range-window extraction kernel (block-sorted metadata)
-    reproduces the blocked XLA gather, with and without the FFT (the fft
-    path folds the roll-back into conjugate DFT phases)."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import (block_sort_order, grid_to_subgrids,
-                                  grid_to_subgrids_ranges)
-
-    rng = np.random.default_rng(23)
-    s, p, n, g = 31, 4, 16, 64
-    cx = rng.integers(0, g, s).astype(np.int32)
-    cy = rng.integers(0, g, s).astype(np.int32)
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = jnp.asarray(cx[order]), jnp.asarray(cy[order])
-    grid = (
-        jnp.asarray(rng.normal(size=(p, g, g)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(p, g, g)).astype(np.float32)),
-    )
-    for fft in (False, True):
-        a = grid_to_subgrids(grid, cx, cy, n, apply_fft=fft)
-        b = grid_to_subgrids_ranges(grid, cx, cy, n, apply_fft=fft,
-                                    interpret=True)
-        scale = max(float(np.abs(np.asarray(a[0])).max()), 1.0)
-        np.testing.assert_allclose(np.asarray(a[0]) / scale,
-                                   np.asarray(b[0]) / scale, atol=3e-6)
-        np.testing.assert_allclose(np.asarray(a[1]) / scale,
-                                   np.asarray(b[1]) / scale, atol=3e-6)
-
-
-def test_grid_extract_ranges_sparse_plan(small_params):
-    """Sparse block occupancy (blocks ≫ tiles, the 16384²-scale regime):
-    the auto-tune drops wc below 8 — down to per-tile chunks (wc=1,
-    k_span=1) — so the range kernel still applies instead of the XLA
-    gather fallback."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import (MAX_EXTRACT_SPAN, block_sort_order,
-                                  grid_to_subgrids, grid_to_subgrids_ranges,
-                                  plan_grid_extract_ranges)
-
-    rng = np.random.default_rng(29)
-    s, p, n, g = 9, 4, 16, 512  # 32×32 = 1024 blocks for 9 tiles
-    cx = rng.integers(0, g, s).astype(np.int32)
-    cy = rng.integers(0, g, s).astype(np.int32)
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = cx[order], cy[order]
-    plan = plan_grid_extract_ranges(cx, cy, g, n)
-    assert plan.wc < 8 and plan.k_span <= MAX_EXTRACT_SPAN
-    grid = (
-        jnp.asarray(rng.normal(size=(p, g, g)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(p, g, g)).astype(np.float32)),
-    )
-    a = grid_to_subgrids(grid, jnp.asarray(cx), jnp.asarray(cy), n,
-                         apply_fft=True)
-    b = grid_to_subgrids_ranges(grid, jnp.asarray(cx), jnp.asarray(cy), n,
-                                apply_fft=True, plan=plan, interpret=True)
-    scale = max(float(np.abs(np.asarray(a[0])).max()), 1.0)
-    np.testing.assert_allclose(np.asarray(a[0]) / scale,
-                               np.asarray(b[0]) / scale, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(a[1]) / scale,
-                               np.asarray(b[1]) / scale, atol=3e-6)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("fft", [False, True])
-def test_grid_extract_ranges_streamed_matches_fused(small_params, fft):
-    """The per-stripe streamed extraction (HBM-capacity grids: only a
-    stripe of padded block rows is ever materialized) reproduces the
-    fused range extraction, including with stripes forced down to a
-    couple of block rows (chunks straddling stripe boundaries, dummy
-    chunk padding, the wrap row in the last stripe)."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import (block_sort_order, grid_to_subgrids_ranges,
-                                  grid_to_subgrids_ranges_streamed)
-
-    rng = np.random.default_rng(31)
-    s, p, n, g = 23, 4, 16, 128
-    cx = rng.integers(0, g, s).astype(np.int32)
-    cy = rng.integers(0, g, s).astype(np.int32)
-    # include an overhanging tile so the wrap row participates
-    cx[0], cy[0] = g - n // 2, g - n // 2
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = jnp.asarray(cx[order]), jnp.asarray(cy[order])
-    grid = (
-        jnp.asarray(rng.normal(size=(p, g, g)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(p, g, g)).astype(np.float32)),
-    )
-    a = grid_to_subgrids_ranges(grid, cx, cy, n, apply_fft=fft,
-                                interpret=True)
-    for stripe_rows in (2, 3, 64):
-        b = grid_to_subgrids_ranges_streamed(
-            grid, cx, cy, n, apply_fft=fft, interpret=True,
-            stripe_rows=stripe_rows,
-        )
-        np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-        np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-
-
-def test_grid_add_ranges_streamed_matches_fused(small_params, monkeypatch):
-    """The per-stripe-jit streamed ranges formulation (HBM-capacity
-    grids) reassembles to the fused ranges grid, including with stripes
-    forced smaller than the block rows."""
-    import jax.numpy as jnp
-
-    import idg_tpu.ops.grid as grid_mod
-    from idg_tpu.ops.grid import (block_sort_order, subgrids_to_grid_ranges,
-                                  subgrids_to_grid_ranges_streamed)
-
-    rng = np.random.default_rng(5)
-    s, p, n, g = 27, 4, 16, 64
-    cx = rng.integers(0, g, s).astype(np.int32)
-    cy = rng.integers(0, g, s).astype(np.int32)
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = jnp.asarray(cx[order]), jnp.asarray(cy[order])
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    fused = subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=True,
-                                    interpret=True)
-    monkeypatch.setattr(grid_mod, "MAX_RANGE_BLOCKS", 8)  # 2-row stripes
-    re_b, im_b = subgrids_to_grid_ranges_streamed(sub, cx, cy, g,
-                                                  apply_fft=True,
-                                                  interpret=True)
-    got = (np.concatenate([np.asarray(b) for b in re_b], axis=1),
-           np.concatenate([np.asarray(b) for b in im_b], axis=1))
-    scale = max(float(np.abs(np.asarray(fused[0])).max()), 1.0)
-    np.testing.assert_allclose(got[0] / scale, np.asarray(fused[0]) / scale,
-                               atol=3e-6)
-    np.testing.assert_allclose(got[1] / scale, np.asarray(fused[1]) / scale,
-                               atol=3e-6)
-
-
-def test_grid_add_merged_streamed_matches_fused(small_params, monkeypatch):
-    """The m-merged streamed kernel (sparse HBM-capacity plans: one grid
-    step per m consecutive blocks, selector MXU dot, host-planned wrap
-    misses patched by scatter-add) reassembles to the fused ranges grid.
-    Coordinates stack the last block column so the qx-shifted quadrants'
-    wrap groups actually produce misses."""
-    import jax.numpy as jnp
-
-    import idg_tpu.ops.grid as grid_mod
-    from idg_tpu.ops.grid import (block_sort_order, plan_grid_add_merged,
-                                  plan_grid_add_ranges,
-                                  subgrids_to_grid_ranges,
-                                  subgrids_to_grid_ranges_streamed)
-
-    rng = np.random.default_rng(11)
-    p, n, g = 4, 16, 512
-    cx = np.concatenate([
-        np.full(10, g - n + 5), rng.integers(0, g, 60),
-    ]).astype(np.int32)
-    cy = np.concatenate([
-        rng.integers(0, g, 10), rng.integers(0, g, 60),
-    ]).astype(np.int32)
-    s = cx.shape[0]
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = cx[order], cy[order]
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    plan = plan_grid_add_ranges(cx, cy, g, n)
-    mplan = plan_grid_add_merged(plan, 16)
-    assert mplan is not None
-    assert len(mplan.miss_rows) > 0, "test data must exercise wrap misses"
-    fused = subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=True,
-                                    interpret=True, plan=plan)
-    monkeypatch.setattr(grid_mod, "MAX_RANGE_BLOCKS", 64)  # 2-row stripes
-    re_b, im_b = subgrids_to_grid_ranges_streamed(
-        sub, jnp.asarray(cx), jnp.asarray(cy), g, apply_fft=True,
-        interpret=True, plan=plan, merge=16,
-    )
-    got = (np.concatenate([np.asarray(b) for b in re_b], axis=1),
-           np.concatenate([np.asarray(b) for b in im_b], axis=1))
-    scale = max(float(np.abs(np.asarray(fused[0])).max()), 1.0)
-    np.testing.assert_allclose(got[0] / scale, np.asarray(fused[0]) / scale,
-                               atol=3e-6)
-    np.testing.assert_allclose(got[1] / scale, np.asarray(fused[1]) / scale,
-                               atol=3e-6)
-
-
-def test_grid_add_merged_consume_reduces_bands(small_params):
-    """consume= reduces each band as its stripe is issued (the OOM-safe
-    benchmark path) and returns the reduced list in stripe order."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import (block_sort_order,
-                                  subgrids_to_grid_ranges_streamed)
-
-    rng = np.random.default_rng(13)
-    s, p, n, g = 20, 4, 16, 256
-    cx = rng.integers(0, g, s).astype(np.int32)
-    cy = rng.integers(0, g, s).astype(np.int32)
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = jnp.asarray(cx[order]), jnp.asarray(cy[order])
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    full = subgrids_to_grid_ranges_streamed(sub, cx, cy, g, apply_fft=False,
-                                            interpret=True, merge=0)
-    reduced = subgrids_to_grid_ranges_streamed(
-        sub, cx, cy, g, apply_fft=False, interpret=True, merge=0,
-        consume=lambda band: (band[0].sum(), band[1].sum()),
-    )
-    assert len(reduced) == len(full[0])
-    want_re = sum(float(np.asarray(b).sum()) for b in full[0])
-    got_re = sum(float(r[0]) for r in reduced)
-    np.testing.assert_allclose(got_re, want_re, rtol=1e-5)
-
-
-def test_grid_add_ranges_striped(small_params, monkeypatch):
-    """Large-grid SMEM striping (MAX_RANGE_BLOCKS) produces the same grid
-    as the single-call path."""
-    import idg_tpu.ops.grid as grid_mod
-    from idg_tpu.ops.grid import block_sort_order, subgrids_to_grid_ranges
-
-    rng = np.random.default_rng(7)
-    s, p, n, g = 23, 4, 16, 64
-    cx = rng.integers(0, g, s).astype(np.int32)
-    cy = rng.integers(0, g, s).astype(np.int32)
-    order = block_sort_order(cx, cy, g, n)
-    cx, cy = cx[order], cy[order]
-    sub = (
-        np.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        np.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    a = subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=False,
-                                interpret=True)
-    monkeypatch.setattr(grid_mod, "MAX_RANGE_BLOCKS", 8)
-    b = subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=False,
-                                interpret=True)
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-
-
-def test_sort_observation_blocks_permutes_gridder(small_params):
-    """Block-sorting the metadata (the pipeline's free host-side prep for
-    the range grid-add) just permutes the gridder's per-subgrid outputs —
-    same subgrids, sorted order, and the full pipeline composition
-    (gridder → iDFT+roll → range accumulation) matches the unsorted
-    scatter pipeline."""
-    from idg_tpu.ops.grid import (plan_grid_add_ranges,
-                                  sort_observation_blocks,
-                                  subgrids_to_grid_ranges)
-
-    params = small_params
-    obs, _ = make_observation(params)
-    g, n = params.grid_size, params.subgrid_size
-    sorted_obs, order = sort_observation_blocks(obs, g, n)
-    base = run_gridder(params, obs, version="xla_v2")
-    got = run_gridder(params, sorted_obs, version="xla_v2")
-    np.testing.assert_array_equal(np.asarray(base)[order], np.asarray(got))
-
-    md = sorted_obs.metadata
-    plan = plan_grid_add_ranges(md.coord_x, md.coord_y, g, n)
-    a = subgrids_to_grid(split_complex(base), obs.metadata.coord_x,
-                         obs.metadata.coord_y, g, apply_fft=True)
-    b = subgrids_to_grid_ranges(split_complex(got), md.coord_x, md.coord_y,
-                                g, apply_fft=True, plan=plan, interpret=True)
-    scale = max(np.abs(np.asarray(a[0])).max(), 1e-30)
-    np.testing.assert_allclose(np.asarray(a[0]) / scale,
-                               np.asarray(b[0]) / scale, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(a[1]) / scale,
-                               np.asarray(b[1]) / scale, atol=2e-5)
-
-
-def test_grid_add_streamed_matches_fused(small_params):
-    """The per-plane-jit streamed scatter (the HBM-capacity formulation
-    used at 16384²) produces exactly the fused path's planes."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import subgrids_to_grid, subgrids_to_grid_streamed
-
-    rng = np.random.default_rng(3)
-    s, p, n, g = 17, 4, 16, 64
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    cx = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    cy = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    fused = subgrids_to_grid(sub, cx, cy, g, apply_fft=True)
-    planes = subgrids_to_grid_streamed(sub, cx, cy, g, apply_fft=True)
-    for comp in range(2):
-        for pol in range(p):
-            np.testing.assert_allclose(
-                np.asarray(planes[comp][pol]),
-                np.asarray(fused[comp][pol]), atol=1e-5,
-            )
-
-
-def test_grid_add_pallas_accumulates_into_existing_grid(small_params):
-    """The Pallas grid-add aliases its grid input: untouched blocks keep
-    the donated grid's content and visited blocks accumulate onto it
-    (production-IDG multi-pass semantics; also drops the O(G²) zero-piece
-    DMA the old formulation paid)."""
-    import jax.numpy as jnp
-
-    from idg_tpu.ops.grid import subgrids_to_grid, subgrids_to_grid_pallas
-
-    rng = np.random.default_rng(5)
-    s, p, n, g = 7, 4, 16, 128   # sparse: most grid blocks untouched
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    cx = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    cy = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    expected = subgrids_to_grid(sub, cx, cy, g, apply_fft=False)
-    base = (
-        jnp.full((p, g, g), 1.5, jnp.float32),
-        jnp.full((p, g, g), -0.5, jnp.float32),
-    )
-    got = subgrids_to_grid_pallas(
-        sub, cx, cy, g, apply_fft=False, interpret=True, grid_in=base
-    )
-    np.testing.assert_allclose(
-        np.asarray(got[0]), np.asarray(expected[0]) + 1.5, atol=2e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(got[1]), np.asarray(expected[1]) - 0.5, atol=2e-6
-    )
-
-
-def test_grid_add_bucketed_matches_scatter():
-    """The host-planned bucketed gather/reduce (the dense, scatter-free
-    grid-add) agrees with the windowed-scatter path, including wrapping
-    edge tiles, and a precomputed plan is reusable across subgrid data."""
-    import jax.numpy as jnp
-
-    import idg_tpu.ops.grid as gridmod
-
-    rng = np.random.default_rng(11)
-    s, p, n, g = 13, 4, 16, 64
-    sub = (
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-        jnp.asarray(rng.normal(size=(s, p, n, n)).astype(np.float32)),
-    )
-    cx = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    cy = jnp.asarray(rng.integers(0, g, s).astype(np.int32))
-    ref = gridmod.subgrids_to_grid(sub, cx, cy, g, apply_fft=False)
-    got = gridmod.subgrids_to_grid_bucketed(sub, cx, cy, g, apply_fft=False)
-    # bucketing reorders the f32 summation — equal up to rounding
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]), atol=2e-6)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]), atol=2e-6)
-
-    # plan reuse: same coords, fresh data, grid_in accumulation
-    plan = gridmod.plan_grid_add(cx, cy, g, n)
-    assert plan.slot_inflation >= 1.0
-    sub2 = (sub[1], sub[0])
-    base = (jnp.full((p, g, g), 2.0, jnp.float32),
-            jnp.full((p, g, g), -1.0, jnp.float32))
-    ref2 = gridmod.subgrids_to_grid(sub2, cx, cy, g, apply_fft=False)
-    got2 = gridmod.subgrids_to_grid_bucketed(
-        sub2, cx, cy, g, apply_fft=False, plan=plan, grid_in=base
-    )
-    np.testing.assert_allclose(
-        np.asarray(got2[0]), np.asarray(ref2[0]) + 2.0, atol=2e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(got2[1]), np.asarray(ref2[1]) - 1.0, atol=2e-6
-    )
-
-
 def test_grid_gather_wraps(small_params):
     """grid_to_subgrids at an overhanging coordinate reads the opposite
     edge (periodic), consistent with the scatter side."""
@@ -796,3 +280,107 @@ def test_grid_gather_wraps(small_params):
     )
     got = np.asarray(sub[0])[0, 0]
     assert got[2, 2] == 5.0  # (g-2+2) % g == 0 on both axes
+
+
+def _random_tiles(rng, s, p, n):
+    return tuple(rng.normal(size=(s, p, n, n)).astype(np.float32)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("apply_fft", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_grid_add_extract_adjoint(apply_fft, seed):
+    """<add(x), g> == <x, extract(g)> for the real inner product of the
+    split pairs: extraction is the exact adjoint of the add, including
+    wrapping tiles (the DFT is unitary up to its 1/N² scale, so with the
+    FFT the extract side carries that factor)."""
+    rng = np.random.default_rng(seed)
+    s, p, n, g = 9, 4, 8, 32
+    x = _random_tiles(rng, s, p, n)
+    gr = tuple(rng.normal(size=(p, g, g)).astype(np.float32) for _ in range(2))
+    cx = rng.integers(0, g, s).astype(np.int32)
+    cy = rng.integers(0, g, s).astype(np.int32)
+    ax = subgrids_to_grid(x, cx, cy, g, apply_fft=apply_fft)
+    eg = grid_to_subgrids(gr, cx, cy, n, apply_fft=apply_fft)
+    lhs = sum(float(np.vdot(np.asarray(a, np.float64), b))
+              for a, b in zip(ax, gr))
+    scale = 1.0 / (n * n) if apply_fft else 1.0
+    # <ifft(x), y>_R == <x, fft(y)>_R / N² for the split real inner product
+    rhs = scale * (float(np.vdot(np.asarray(x[0], np.float64),
+                                 np.asarray(eg[0])))
+                   + float(np.vdot(np.asarray(x[1], np.float64),
+                                   np.asarray(eg[1]))))
+    assert abs(lhs - rhs) <= 1e-4 * max(abs(lhs), 1.0)
+
+
+@pytest.mark.parametrize("corner", [(0, 0), (29, 3), (3, 29), (31, 31)])
+def test_grid_add_wraps(corner):
+    """A tile placed near an edge adds its overhang onto the opposite edge
+    (periodic), and the add conserves the tile's mass."""
+    g, n, p = 32, 8, 4
+    cy, cx = corner
+    tile = np.zeros((1, p, n, n), np.float32)
+    tile[0, :, n - 1, n - 1] = 3.0          # the tile's last pixel
+    grid = subgrids_to_grid((tile, tile), np.asarray([cx]), np.asarray([cy]),
+                            g, apply_fft=False)
+    got = np.asarray(grid[0])
+    assert got[0, (cy + n - 1) % g, (cx + n - 1) % g] == 3.0
+    assert float(got.sum()) == float(tile.sum())
+
+
+@pytest.mark.parametrize("apply_fft", [False, True])
+def test_grid_add_accumulates_into_existing_grid(apply_fft):
+    """`grid_in` adds the tiles onto an existing grid (multi-pass
+    accumulation): the result is the fresh add plus the old grid."""
+    rng = np.random.default_rng(5)
+    s, p, n, g = 7, 4, 16, 128
+    sub = _random_tiles(rng, s, p, n)
+    cx = rng.integers(0, g, s).astype(np.int32)
+    cy = rng.integers(0, g, s).astype(np.int32)
+    expected = subgrids_to_grid(sub, cx, cy, g, apply_fft=apply_fft)
+    base = (np.full((p, g, g), 1.5, np.float32),
+            np.full((p, g, g), -0.5, np.float32))
+    got = subgrids_to_grid(sub, cx, cy, g, apply_fft=apply_fft, grid_in=base)
+    np.testing.assert_allclose(np.asarray(got[0]),
+                               np.asarray(expected[0]) + 1.5, atol=2e-6)
+    np.testing.assert_allclose(np.asarray(got[1]),
+                               np.asarray(expected[1]) - 0.5, atol=2e-6)
+
+
+def test_grid_add_matches_numpy_add_at(small_params):
+    """The windowed scatter-add equals np.add.at over wrapped indices."""
+    rng = np.random.default_rng(2)
+    s, p, n, g = 11, 4, 8, 32
+    sub = _random_tiles(rng, s, p, n)
+    cx = rng.integers(0, g, s)
+    cy = rng.integers(0, g, s)
+    got = subgrids_to_grid(sub, cx.astype(np.int32), cy.astype(np.int32), g,
+                           apply_fft=False)
+    want = np.zeros((p, g, g), np.float64)
+    iy = (cy[:, None] + np.arange(n)) % g          # [S, N]
+    ix = (cx[:, None] + np.arange(n)) % g
+    for i in range(s):
+        np.add.at(want, (slice(None), iy[i][:, None], ix[i][None, :]),
+                  sub[0][i])
+    np.testing.assert_allclose(np.asarray(got[0]), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid_sharded", [False, True])
+def test_flat_mesh_grid_reduction_matches_local(mesh, par_params, par_obs,
+                                                grid_sharded):
+    """The 8-device flat mesh reduces the grid with psum (replicated) or
+    psum_scatter (row blocks); both equal the single-device add."""
+    assert mesh.axis_names == ("data",) and mesh.devices.shape == (8,)
+    sobs = split_observation(par_obs)
+    kernel = get_kernel("gridder", "xla_v4").fn
+    sub = jax.jit(kernel, static_argnums=0)(par_params, sobs)
+    md = par_obs.metadata
+    expected = subgrids_to_grid(sub, md.coord_x, md.coord_y,
+                                par_params.grid_size)
+    sharded_sobs, _ = shard_observation(par_params, sobs, mesh)
+    got = sharded_gridder_to_grid(par_params, mesh, "xla_v4",
+                                  grid_sharded=grid_sharded)(sharded_sobs)
+    scale = float(np.abs(np.asarray(expected[0])).max())
+    for i in (0, 1):
+        np.testing.assert_allclose(np.asarray(got[i]) / scale,
+                                   np.asarray(expected[i]) / scale, atol=1e-5)

@@ -25,6 +25,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+from jax import lax
 
 from idg_tpu import IDGParams, make_observation
 from idg_tpu.models.reference import degridder_reference, gridder_reference
@@ -34,9 +35,16 @@ from idg_tpu.types import Metadata, combine_complex, split_complex
 from idg_tpu.utils.compare import check_error
 
 
+CPU_PALLAS = {"interpret": True, "precision": lax.Precision.HIGHEST}
+
+
+def _kw(version):
+    return CPU_PALLAS if version.startswith("pallas") else {}
+
+
 def _device_pipeline(params, obs, grid_version, degrid_version):
     """vis → gridder → iFFT+grid-add → extract+FFT → degridder → vis'."""
-    sub = run_gridder(params, obs, version=grid_version)
+    sub = run_gridder(params, obs, version=grid_version, **_kw(grid_version))
     md = obs.metadata
     grid = subgrids_to_grid(
         split_complex(sub), md.coord_x, md.coord_y, params.grid_size,
@@ -46,7 +54,8 @@ def _device_pipeline(params, obs, grid_version, degrid_version):
         grid, md.coord_x, md.coord_y, params.subgrid_size, apply_fft=True
     )
     tiles_c = combine_complex(np.asarray(tiles[0]), np.asarray(tiles[1]))
-    return run_degridder(params, obs, tiles_c, version=degrid_version)
+    return run_degridder(params, obs, tiles_c, version=degrid_version,
+                         **_kw(degrid_version))
 
 
 # --------------------------------------------------------------------------
@@ -105,12 +114,8 @@ def lattice_problem():
         # xla_v2 is full f32: the single-direction 1e-5 gate holds through
         # the composition.
         ("xla_v2", "xla_v2", 1e-5),
-        # pallas_v4 uses the bf16-split dot (single-direction floor ~8e-6,
-        # res/VALIDATION.md); the roundtrip composes two such kernels AND
-        # cancels all off-diagonal terms, so the surviving diagonal sees
-        # the accumulated error of ~N²·T cancelled products — derived
-        # bound: 2 directions × 8e-6 × small amplification ⇒ 1e-4.
-        ("pallas_v4", "pallas_v4", 1e-4),
+        # the Pallas kernels (interpret mode, f32 dots) hold the same gate
+        ("pallas_triton", "pallas_triton", 1e-5),
     ],
 )
 def test_roundtrip_recovers_lattice_visibilities(
@@ -205,41 +210,35 @@ def test_roundtrip_overlapping_matches_composed_golden(small_params, small_obs):
     assert result.passed, f"normalized error {result.mean_error}"
 
 
-def test_staged_degridder_consumer_matches_api(small_params, small_obs):
-    """The pipeline's composable degridder (staged_degridder_consumer)
-    matches run_degridder, on both the single-chunk path and the
-    chunk-sliced path (MAX_CHUNK monkeypatched below S)."""
+@pytest.mark.parametrize("direction", ["grid", "degrid"])
+def test_pipeline_parts_match_composition(direction, small_params, small_obs):
+    """ops.api.pipeline_parts (the CLI/bench/chip_smoke pipelines) equals
+    the stage-by-stage composition, and its stages compose to its pass."""
     import jax
 
-    import idg_tpu.ops.pallas.degridder as deg_mod
-    from idg_tpu.data import initialize_subgrids
-    from idg_tpu.ops.api import staged_degridder_consumer
+    from idg_tpu.ops.api import pipeline_parts
 
-    params = small_params
-    obs = small_obs
-    s = params.nr_subgrids
-    subgrids = initialize_subgrids(s, params.nr_correlations,
-                                   params.subgrid_size)
-    expected = run_degridder(params, obs, subgrids, version="pallas_v4")
-    sub_pair = tuple(jax.device_put(v) for v in split_complex(subgrids))
-
-    fn, rv = staged_degridder_consumer(params, obs, "pallas_v4")
-    got = fn(sub_pair)
-    got0 = combine_complex(np.asarray(got[0]), np.asarray(got[1]))[0]
-    assert check_error(got0, np.asarray(expected)[0], verbose=False).passed
-
-    chunk = max(1, s // 2)
-    orig = deg_mod.MAX_CHUNK
-    deg_mod.MAX_CHUNK = chunk
-    try:
-        fn_c, _ = staged_degridder_consumer(params, obs, "pallas_v4")
-        got_c = fn_c(sub_pair)
-    finally:
-        deg_mod.MAX_CHUNK = orig
-    # chunked fn returns the LAST chunk's leading row = global subgrid
-    # index of that chunk's first element
-    n_chunks = -(-s // chunk)
-    idx = (n_chunks - 1) * chunk
-    got_row = combine_complex(np.asarray(got_c[0]), np.asarray(got_c[1]))[0]
-    assert check_error(got_row, np.asarray(expected)[idx],
-                       verbose=False).passed
+    params, obs = small_params, small_obs
+    md = obs.metadata
+    kernel, grid_fn, pass_fn, args = pipeline_parts(
+        direction, params, obs, "pallas_triton", **CPU_PALLAS)
+    got = pass_fn(*args)
+    if direction == "grid":
+        sub = run_gridder(params, obs, version="pallas_triton", **CPU_PALLAS)
+        want = subgrids_to_grid(split_complex(sub), md.coord_x, md.coord_y,
+                                params.grid_size)
+        staged = grid_fn(kernel(*args))
+    else:
+        tiles = grid_to_subgrids(args[0], md.coord_x, md.coord_y,
+                                 params.subgrid_size)
+        want = split_complex(run_degridder(
+            params, obs, combine_complex(*map(np.asarray, tiles)),
+            version="pallas_triton", **CPU_PALLAS))
+        staged = kernel(grid_fn(*args))
+    jax.block_until_ready(got)
+    for a, b in ((got, want), (got, staged)):
+        scale = float(np.abs(np.asarray(b[0])).max())
+        np.testing.assert_allclose(np.asarray(a[0]) / scale,
+                                   np.asarray(b[0]) / scale, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(a[1]) / scale,
+                                   np.asarray(b[1]) / scale, atol=1e-5)

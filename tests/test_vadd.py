@@ -1,8 +1,10 @@
-"""vadd bandwidth smoke kernel: XLA and Pallas(interpret) variants agree."""
+"""vadd copy-bandwidth reference kernel."""
 
 import numpy as np
 
-from idg_tpu.ops.vadd import make_vadd_inputs, vadd, vadd_gbytes, vadd_pallas
+import pytest
+
+from idg_tpu.ops.vadd import make_vadd_inputs, vadd, vadd_gbytes
 
 
 def test_vadd_correct():
@@ -11,10 +13,11 @@ def test_vadd_correct():
     np.testing.assert_allclose(out, np.asarray(x) + np.asarray(y))
 
 
-def test_vadd_pallas_matches():
-    x, y = make_vadd_inputs(1024 * 1024)
-    out = np.asarray(vadd_pallas(x, y, interpret=True))
-    np.testing.assert_allclose(out, np.asarray(vadd(x, y)))
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_vadd_inputs_shapes(n):
+    x, y = make_vadd_inputs(n)
+    assert x.shape == y.shape == (n,)
+    assert x.dtype == y.dtype == np.float32
 
 
 def test_vadd_gbytes():

@@ -1,13 +1,15 @@
 """Wire-format tests for the xplane decoder (scripts/xplane_tools.py):
 a hand-encoded XSpace protobuf (schema:
 tensorflow/core/profiler/protobuf/xplane.proto) must decode to the same
-planes/events/stats, and the MXU summary must derive busy% from the
-flops stats only — events without a flops stat contribute zero."""
+planes/events/stats, and per-op device time must aggregate per
+(plane, line) under the plane/line filters."""
 
 import importlib.util
 import os
 import struct
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 spec = importlib.util.spec_from_file_location(
@@ -58,14 +60,14 @@ def _md_entry(fnum, key, name):
 
 
 def _make_space():
-    # plane "/device:TPU:0": one line "XLA Ops", two ops:
-    #   fusion.1: 10 us, 1.97e9 flops (10% of a 197 TF/s MXU)
-    #   copy.2:   10 us, no flops stat
+    # plane "/device:GPU:0": one line "XLA Ops", two ops:
+    #   fusion.1: 10 us, with a 1.97e9 flops stat
+    #   copy.2:   10 us, no stat
     line = _field(2, 2, b"XLA Ops")
     line += _field(4, 2, _event(1, 0, 10_000_000,
                                 [_stat(7, double=1.97e9)]))
     line += _field(4, 2, _event(2, 10_000_000, 10_000_000))
-    plane = _field(2, 2, b"/device:TPU:0")
+    plane = _field(2, 2, b"/device:GPU:0")
     plane += _field(3, 2, line)
     plane += _md_entry(4, 1, "fusion.1")
     plane += _md_entry(4, 2, "copy.2")
@@ -79,28 +81,29 @@ def test_parse_and_aggregate(tmp_path):
     planes = xpt.parse_xspace(str(p))
     assert len(planes) == 1
     name, md, lines, smd = planes[0]
-    assert name == "/device:TPU:0"
+    assert name == "/device:GPU:0"
     assert md == {1: "fusion.1", 2: "copy.2"}
     assert smd == {7: "flops"}
     agg = xpt.aggregate(planes)
-    ops = agg[("/device:TPU:0", "XLA Ops")]
+    ops = agg[("/device:GPU:0", "XLA Ops")]
     assert ops["fusion.1"] == (10_000_000, 1)
     assert ops["copy.2"] == (10_000_000, 1)
 
 
-def test_mxu_summary(tmp_path, capsys):
+@pytest.mark.parametrize("plane, line, hits", [
+    ("", "", 1), ("gpu", "", 1), ("", "xla", 1), ("cpu", "", 0),
+    ("", "steps", 0),
+])
+def test_aggregate_filters(tmp_path, plane, line, hits):
     p = tmp_path / "t.xplane.pb"
     p.write_bytes(_make_space())
     planes = xpt.parse_xspace(str(p))
-    res = xpt.mxu_summary(planes, peak_tflops=197.0)
-    assert len(res) == 1
-    pname, lname, span_ps, total_flops, per_op = res[0]
-    assert span_ps == 20_000_000  # 20 us window
-    assert total_flops == 1.97e9
-    # busy = 1.97e9 / 20e-6 / 197e12 = 50%
-    busy = total_flops / (span_ps * 1e-12) / 197e12
-    assert abs(busy - 0.5) < 1e-9
+    assert len(xpt.aggregate(planes, plane, line)) == hits
+
+
+def test_main_prints_per_op_totals(tmp_path, capsys):
+    p = tmp_path / "t.xplane.pb"
+    p.write_bytes(_make_space())
+    assert xpt.main([str(p)]) == 0
     out = capsys.readouterr().out
-    assert "MXU busy" in out and "50.0%" in out
-    # events with no flops stat claim nothing
-    assert per_op["copy.2"][0] == 0.0
+    assert "total 0.020 ms" in out and "fusion.1" in out
